@@ -5,13 +5,23 @@
 
 Phases, one line each, with their seconds:
   1. environment: torch and CUDA versions, the GPU, nvidia-smi's name and
-     power limit, the float32 settings in force;
-  2. build: the CUDA kernel, with nvcc, from the sources in the checkout;
-  3. kernel against its plain PyTorch version on the card, at the main
-     path's 60x80 map (r=4, χ² 2.365974), with out-of-bounds-heavy flow,
-     and on an odd 17x23 map (r=3): atol 2e-5 on x, rtol 2e-5 on P, the
-     consistency mask equal;
-  4. the slice at full width: the default KFNetConfig (GN SCoordNet
+     power limit, the float32 settings in force (TF32 off, so the plain
+     versions' float32 products are full float32);
+  2. build: the two CUDA libraries, one nvcc each, started together, from
+     the sources in the checkout;
+  3. the fused warp + Kalman kernel against its plain PyTorch version on
+     the card, at the main path's 60x80 map (r=4, χ² 2.365974), with
+     out-of-bounds-heavy flow, and on an odd 17x23 map (r=3): atol 2e-5 on
+     x, rtol 2e-5 on P, the consistency mask equal;
+  4. the conv kernels against their plain versions on the card at every
+     distinct shape of the conv-kernel configuration's path (below), plus
+     an odd 17x23 map for conv3x3_same; conv3x3_gn_chain twice, bit-equal
+     (its sums are reduced in a fixed order). Tolerances: float32 outputs
+     and Σy within 3e-5 of the largest |value| (the kernel sums the same
+     exact bf16 products in another order); Σy² within rtol 5e-5 (the same
+     reordering, squared); bf16 outputs within one bf16 rounding step
+     (rtol 2^-7, plus 3e-5 of the largest |value| near zero);
+  5. the slice at full width: the default KFNetConfig (GN SCoordNet
      64..512 with a 512 head, OFlowNet encoder 32..128, r=4, U-Net
      128/128/256, s2d 2, bf16) with weights drawn from seed 0, serving
      eight 640x480 uint8 frames through OnlineRelocalizer. The kernel must
@@ -19,19 +29,26 @@ Phases, one line each, with their seconds:
      finite, and the same frames through use_fused_kernel=False must give
      the same x and P (rtol 1e-3, atol 1e-3: the two paths share every bf16
      op, so any difference is the kernel's);
-  5. pose on known data: 4800 correspondences, 30% outliers, solved on the
+  6. the same weights and frames in the conv-kernel configuration
+     (SCoordNet conv_impl="pallas_fused", OFlowNet "pallas_3x3"): every
+     kernel's launches equal the count kfnet.kernel_shapes gives for the
+     config (12 chain calls a frame; conv3x3_same once on the first frame
+     and 6 times on each later one; the fused update once a frame after the
+     first), outputs finite, no host sync inside a frame; every kernel
+     call of one frame's (z, V) and one pair's (flow, W) within phase 4's
+     tolerances of its plain version on its own inputs; those outputs
+     within BOUNDS of the same path with each kernel's plain version in
+     its place, and of the default config's;
+  7. pose on known data: 4800 correspondences, 30% outliers, solved on the
      card to within 1 cm and 0.1°;
-  6. times with CUDA events: process() per frame, the kernel, its plain
-     version, the pose solve.
-The line before the last lists each kernel with its launches on the main
-path, its error against the plain version, its times and its bound. The
-last line is the run's verdict. Exits non-zero, printing no verdict, when
-there is no CUDA device or a phase fails.
-
+  8. times with CUDA events: process() per frame in both configurations,
+     each kernel at its main-path shapes beside its plain version and
+     cuDNN's conv at the same shape, the pose solve.
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
 nothing under artifacts/; writes only the kernel build directory.
 """
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -39,6 +56,7 @@ import os
 import subprocess
 import sys
 import time
+import unittest.mock as mock
 import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -47,6 +65,23 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TOL_X, TOL_P = 2e-5, 2e-5   # the kernel against its plain version
 TOL_PATH = 1e-3             # fused vs unfused slice, x and P (rtol, atol)
+BF16_PEAK_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+TOL_F32_SUM = 3e-5          # conv kernels: f32 outputs and Σy, of max |value|
+TOL_S2 = 5e-5               # conv3x3_gn_chain: Σy², rtol
+BF16_STEP = 2.0 ** -7       # one bf16 rounding step, rtol
+# conv-kernel config against the default one, and against the same path
+# with each conv kernel's plain version in its place, same weights and
+# frames: the largest |difference| over the largest |value| of the other
+# output for z and flow, the largest relative difference for the variances
+# V and W. About 3x what the card showed against the default (z 0.015,
+# flow 0.023, V 0.035, W 0.023); against the plain path it showed as much
+# (z 0.014, flow 0.022, V 0.033, W 0.029). A reordered float32 sum flips a
+# bf16 rounding now and then, and through the 15-layer random-weight trunk
+# the flips spread until both sides differ at bf16's own noise level. So
+# this bound cannot be tight; each kernel call of the path is held tightly
+# against its plain version on its own inputs instead (check_calls).
+BOUNDS = {"z": 0.05, "flow": 0.07, "V": 0.1, "W": 0.1}
+IMG = (480, 640, 3)
 FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "tensorstore", "cv2")
 
 
@@ -120,6 +155,164 @@ def cuda_ms(fn, n):
   return start.elapsed_time(end) / n
 
 
+def conv_inputs(gen, h, w, cin, cout, dev):
+  """A bf16 map, He-scaled weights, a bias and a GroupNorm (scale, shift)."""
+  import torch
+  x = torch.randn((h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+  wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (
+      2.0 / (9 * cin)) ** 0.5
+  b = torch.randn((cout,), generator=gen, device=dev)
+  scale = torch.rand((cin,), generator=gen, device=dev) + 0.5
+  shift = torch.randn((cin,), generator=gen, device=dev) * 0.3
+  return x, wt, b, scale, shift
+
+
+def held(got, want, rtol, atol_of_max):
+  """(max |got - want|, whether |got - want| <= rtol |want| + atol_of_max
+  max |want| holds everywhere)."""
+  g, w = got.float(), want.float()
+  d = (g - w).abs()
+  lim = rtol * w.abs() + atol_of_max * w.abs().max()
+  return d.max().item(), bool((d <= lim).all())
+
+
+def call_errors(c3, name, args, kwargs, got):
+  """One conv kernel call's result against its plain version on the same
+  arguments: ({output: max |difference|}, whether each is in tolerance)."""
+  import torch
+  want = getattr(c3, name + "_reference")(*args, **kwargs)
+  if name == "conv3x3_same":
+    rtol = BF16_STEP if got.dtype == torch.bfloat16 else 0.0
+    err, ok = held(got, want, rtol, TOL_F32_SUM)
+    return {"y": err}, ok
+  ey, oky = held(got[0], want[0], BF16_STEP, TOL_F32_SUM)
+  e1, ok1 = held(got[1], want[1], 0.0, TOL_F32_SUM)
+  e2, ok2 = held(got[2], want[2], TOL_S2, 0.0)
+  return {"y": ey, "s1": e1, "s2": e2}, oky and ok1 and ok2
+
+
+def check_conv_kernels(c3, gen, dev, same_shapes, chain_shapes):
+  """Each conv kernel against its plain version; raises on a miss."""
+  import torch
+  out = {"conv3x3_same": {}, "conv3x3_gn_chain": {}}
+  for shape in same_shapes + [(17, 23, 256, 128)]:
+    x, wt, b, _, _ = conv_inputs(gen, *shape, dev)
+    for bias, relu, od in ((b, True, torch.float32),
+                           (None, False, torch.bfloat16)):
+      args = (x, wt, bias, relu, od)
+      errs, ok = call_errors(c3, "conv3x3_same", args, {},
+                             c3.conv3x3_same(*args))
+      err = errs["y"]
+      key = f"{shape}/{'f32_bias_relu' if relu else 'bf16_layer'}"
+      out["conv3x3_same"][key] = err
+      if not ok:
+        raise AssertionError(f"conv3x3_same disagrees at {key}: {err}")
+  for i, shape in enumerate(chain_shapes):
+    x, wt, _, scale, shift = conv_inputs(gen, *shape, dev)
+    args = (x, scale, shift, wt, i > 0)
+    got = c3.conv3x3_gn_chain(*args)
+    again = c3.conv3x3_gn_chain(*args)
+    errs, ok = call_errors(c3, "conv3x3_gn_chain", args, {}, got)
+    same_twice = all(torch.equal(a, b) for a, b in zip(got, again))
+    out["conv3x3_gn_chain"][str(shape)] = dict(
+        errs, prologue_relu=i > 0, bit_equal_twice=same_twice)
+    if not (ok and same_twice):
+      raise AssertionError(f"conv3x3_gn_chain disagrees at {shape}: "
+                           f"{out['conv3x3_gn_chain'][str(shape)]}")
+  return out
+
+
+@contextlib.contextmanager
+def recording(c3, calls):
+  """Record each conv kernel call's arguments and result in ``calls``
+  ({wrapper name: []}). While patched, a wrapper adds its launch to its
+  recorder's count, not to its own."""
+  with contextlib.ExitStack() as stack:
+    for name, log in calls.items():
+      def rec(*args, _real=getattr(c3, name), _log=log, **kwargs):
+        out = _real(*args, **kwargs)
+        _log.append((args, kwargs, out))
+        return out
+      rec.launches = 0
+      stack.enter_context(mock.patch.object(c3, name, rec))
+    yield
+
+
+def check_calls(c3, calls):
+  """Every recorded call against its plain version on its own inputs, at
+  the tolerances of ``check_conv_kernels``; raises on a miss."""
+  out = {}
+  for name, log in calls.items():
+    worst = {}
+    for args, kwargs, got in log:
+      errs, ok = call_errors(c3, name, args, kwargs, got)
+      if not ok:
+        raise AssertionError(f"{name} disagrees in the path at "
+                             f"{tuple(args[0].shape)}: {errs}")
+      worst = {k: max(v, worst.get(k, 0.0)) for k, v in errs.items()}
+    out[name] = dict(calls=len(log), **worst)
+  return out
+
+
+def deviation(got, want, relative):
+  d = (got.float() - want.float()).abs()
+  if relative:
+    return {"max_abs": d.max().item(),
+            "max_rel": (d / want.float().abs()).max().item()}
+  scale = want.float().abs().max().item()
+  return {"max_abs": d.max().item(), "scale": scale,
+          "max_rel": d.max().item() / scale}
+
+
+def conv_bound_ms(h, w, cin, cout, chain):
+  """The least time for one call: bf16 tensor-core operations at peak, or
+  its bytes (x, the float32 weights, y; the chain's scale, shift and sums
+  too) at the memory rate, whichever is larger."""
+  ops = 2 * h * w * 9 * cin * cout
+  nbytes = h * w * cin * 2 + 9 * cin * cout * 4 + h * w * cout * 2
+  if chain:
+    nbytes += 2 * cin * 4 + 2 * cout * 4
+  ops_ms = ops / BF16_PEAK_FLOPS_PER_S * 1e3
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                 else "bytes")
+
+
+def time_conv_kernels(c3, gen, dev, shapes, chain):
+  """Per distinct shape: the kernel, its plain version and cuDNN's conv
+  (bf16, channels-last) in ms per call, and the call's bound."""
+  import torch
+  import torch.nn.functional as F
+  rows = {}
+  for i, shape in enumerate(shapes):
+    x, wt, _, scale, shift = conv_inputs(gen, *shape, dev)
+    if chain:
+      relu = i > 0
+      kern = lambda: c3.conv3x3_gn_chain(x, scale, shift, wt, relu)
+      plain = lambda: c3.conv3x3_gn_chain_reference(x, scale, shift, wt, relu)
+    else:
+      kern = lambda: c3.conv3x3_same(x, wt, None, False, torch.bfloat16)
+      plain = lambda: c3.conv3x3_same_reference(x, wt, None, False,
+                                                torch.bfloat16)
+    xl = x.permute(2, 0, 1)[None]  # channels-last (1, C, H, W) view
+    wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bound, by = conv_bound_ms(*shape, chain)
+    rows[shape] = {"ms": cuda_ms(kern, 30), "plain_ms": cuda_ms(plain, 10),
+                   "cudnn_ms": cuda_ms(lambda: F.conv2d(xl, wl, padding=1),
+                                       30),
+                   "bound_ms": bound, "bound_by": by}
+  return rows
+
+
+def per_frame(rows, calls):
+  """Sum of each column over one frame's calls (shapes repeat)."""
+  tot = {k: sum(rows[c][k] for c in calls)
+         for k in ("ms", "plain_ms", "cudnn_ms", "bound_ms")}
+  ops = sum(rows[c]["bound_by"] == "operations" for c in calls)
+  tot["bound_by"] = "operations" if 2 * ops >= len(calls) else "bytes"
+  return tot
+
+
 def main():
   t_all = time.time()
   import numpy as np
@@ -131,8 +324,11 @@ def main():
   import kfnet_tpu_torch
   from kfnet_tpu_torch.core import geometry
   from kfnet_tpu_torch.eval.online import OnlineRelocalizer
+  from kfnet_tpu_torch.kernels import _build
+  from kfnet_tpu_torch.kernels import conv3x3 as c3
   from kfnet_tpu_torch.kernels import fused_filter as ff
-  from kfnet_tpu_torch.models import kfnet
+  from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
+  from kfnet_tpu_torch.nn import layers as L
   from kfnet_tpu_torch.pose import ransac
 
   # 1. environment
@@ -147,8 +343,11 @@ def main():
 
   # 2. build
   t0 = time.time()
+  _build.build_libraries([(ff.LIBRARY, ff.SOURCES), (c3.LIBRARY, c3.SOURCES)])
   ff.build()
-  say("build", t0, source="kfnet_tpu_torch/kernels/csrc/fused_filter.cu")
+  c3.build()
+  say("build", t0, sources=["kfnet_tpu_torch/kernels/csrc/fused_filter.cu",
+                            "kfnet_tpu_torch/kernels/csrc/conv3x3.cu"])
 
   # 3. kernel against its plain version on the card
   t0 = time.time()
@@ -180,10 +379,25 @@ def main():
   say("kernel_vs_plain", t0, tol={"x_atol": TOL_X, "P_rtol": TOL_P},
       cases=errs)
 
-  # 4. the slice at full width
+  # 4. the conv kernels against their plain versions
+  t0 = time.time()
+  conv_cfg = kfnet.KFNetConfig(
+      scoordnet=scoordnet.SCoordNetConfig(conv_impl="pallas_fused"),
+      oflownet=oflownet.OFlowNetConfig(conv_impl="pallas_3x3"))
+  first = kfnet.kernel_shapes(conv_cfg, IMG, first=True)
+  later = kfnet.kernel_shapes(conv_cfg, IMG)
+  same_shapes = list(dict.fromkeys(later["conv3x3_same"]))
+  chain_shapes = list(dict.fromkeys(later["conv3x3_gn_chain"]))
+  gen = torch.Generator(device=dev).manual_seed(0)
+  conv_errs = check_conv_kernels(c3, gen, dev, same_shapes, chain_shapes)
+  say("conv_kernels_vs_plain", t0,
+      tol={"f32_and_s1_of_max": TOL_F32_SUM, "s2_rtol": TOL_S2,
+           "bf16_rtol": BF16_STEP}, **conv_errs)
+
+  # 5. the slice at full width
   t0 = time.time()
   cfg = kfnet.KFNetConfig()
-  params = kfnet.init(0, cfg, (480, 640, 3), device=dev)
+  params = kfnet.init(0, cfg, IMG, device=dev)
   K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], np.float32)
   frames = np.random.default_rng(0).integers(0, 256, (8, 480, 640, 3),
                                              dtype=np.uint8)
@@ -227,7 +441,83 @@ def main():
     raise AssertionError("a frame's work waits on the device before its "
                          "result copy")
 
-  # 5. pose on known data
+  # 6. the conv-kernel configuration at full width
+  t0 = time.time()
+  reloc_c = OnlineRelocalizer(params, conv_cfg, K, device=dev, seed=0)
+  ff.fused_warp_kalman.launches = 0
+  c3.conv3x3_same.launches = 0
+  c3.conv3x3_gn_chain.launches = 0
+  L.layout_copies = 0
+  outs_c = [reloc_c.process(f) for f in frames]
+  torch.cuda.synchronize()
+  conv_launches = {"fused_warp_kalman": ff.fused_warp_kalman.launches,
+                   "conv3x3_same": c3.conv3x3_same.launches,
+                   "conv3x3_gn_chain": c3.conv3x3_gn_chain.launches}
+  n_later = len(frames) - 1
+  expected = {"fused_warp_kalman": n_later}
+  for name in ("conv3x3_same", "conv3x3_gn_chain"):
+    expected[name] = len(first[name]) + n_later * len(later[name])
+  copies = L.layout_copies
+  up = lambda f: kfnet.preprocess_images(cfg, torch.from_numpy(f).to(dev))
+  img0, img1 = up(frames[0]), up(frames[1])
+
+  def pair_outputs(c):
+    z, V = kfnet.measure(params, c, img1)
+    flow, W = kfnet.flow_from_features(params, c, kfnet.encode(params, c, img0),
+                                       kfnet.encode(params, c, img1))
+    return {"z": z, "V": V, "flow": flow, "W": W}
+
+  calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
+  with recording(c3, calls):
+    out_c = pair_outputs(conv_cfg)
+  in_path = check_calls(c3, calls)
+  n_calls = {k: len(v) for k, v in calls.items()}
+  if n_calls != {"conv3x3_same": len(first["conv3x3_same"])
+                 + len(later["conv3x3_same"]),
+                 "conv3x3_gn_chain": len(later["conv3x3_gn_chain"])}:
+    raise AssertionError(f"kernel calls in the checked pair: {n_calls}")
+  out_x = pair_outputs(cfg)
+  # the same path with each kernel's plain version in its place (same
+  # rounding points; these calls are not counted)
+  with mock.patch.object(c3, "conv3x3_same", c3.conv3x3_same_reference), \
+      mock.patch.object(c3, "conv3x3_gn_chain",
+                        c3.conv3x3_gn_chain_reference):
+    out_p = pair_outputs(conv_cfg)
+  dev_vs_xla = {k: deviation(out_c[k], out_x[k], k in ("V", "W"))
+                for k in out_c}
+  dev_vs_plain = {k: deviation(out_c[k], out_p[k], k in ("V", "W"))
+                  for k in out_c}
+  poses_c = np.stack([p for p, _ in outs_c])
+  conv_checks = {
+      "launches": conv_launches, "launches_expected": expected,
+      "layout_copies": copies,
+      "packed_finite": bool(np.isfinite(poses_c).all() and all(
+          np.isfinite([i["consistent_frac"], i["num_inliers"],
+                       i["inlier_ratio"]]).all() for _, i in outs_c)),
+      "consistent_frac": [i["consistent_frac"] for _, i in outs_c],
+      "calls_in_path_vs_plain": in_path, "vs_plain_path": dev_vs_plain,
+      "vs_default_config": dev_vs_xla, "bounds": BOUNDS,
+      "host_syncs_in_one_tick": host_syncs(reloc_c, frames[0]),
+  }
+  say("slice_conv_kernels", t0,
+      config="KFNetConfig(SCoordNet pallas_fused, OFlowNet pallas_3x3) "
+      "640x480 bf16", **conv_checks)
+  if conv_launches != expected:
+    raise AssertionError(f"kernel launches {conv_launches}, expected "
+                         f"{expected}")
+  if not conv_checks["packed_finite"]:
+    raise AssertionError("non-finite packed output (conv kernels)")
+  for what, devs in (("its plain version", dev_vs_plain),
+                     ("the default config", dev_vs_xla)):
+    over = {k: v["max_rel"] for k, v in devs.items()
+            if not v["max_rel"] <= BOUNDS[k]}
+    if over:
+      raise AssertionError(f"conv-kernel path off {what}: {over}")
+  if conv_checks["host_syncs_in_one_tick"]:
+    raise AssertionError("a frame's work waits on the device before its "
+                         "result copy (conv kernels)")
+
+  # 7. pose on known data
   t0 = time.time()
   prng = np.random.default_rng(1)
   n = 4800
@@ -257,7 +547,7 @@ def main():
   if not (terr < 0.01 and rerr < 0.1):
     raise AssertionError(f"pose off: {terr} m, {rerr} deg")
 
-  # 6. times
+  # 8. times
   t0 = time.time()
   args, r, thr = main_inputs
   kernel_ms = cuda_ms(lambda: ff.fused_warp_kalman(*args, radius=r,
@@ -267,7 +557,19 @@ def main():
   more = np.random.default_rng(2).integers(0, 256, (16, 480, 640, 3),
                                            dtype=np.uint8)
   cycle = itertools.cycle(more)
-  process_ms = cuda_ms(lambda: reloc.process(next(cycle)), 16)
+  # in turns, default, conv, conv, default: 8 frames each
+  turns = {"default": [], "conv_kernels": []}
+  for name, rl in (("default", reloc), ("conv_kernels", reloc_c),
+                   ("conv_kernels", reloc_c), ("default", reloc)):
+    turns[name].append(cuda_ms(lambda: rl.process(next(cycle)), 8))
+  process_ms = sum(turns["default"]) / 2
+  process_conv_ms = sum(turns["conv_kernels"]) / 2
+  same_rows = time_conv_kernels(c3, gen, dev, same_shapes, chain=False)
+  chain_rows = time_conv_kernels(c3, gen, dev, chain_shapes, chain=True)
+  same_frame = per_frame(same_rows, later["conv3x3_same"])
+  chain_frame = per_frame(chain_rows, later["conv3x3_gn_chain"])
+  w512 = conv_inputs(gen, 60, 80, 512, 512, dev)[1]
+  weight_prep_ms = cuda_ms(lambda: c3._kernel_weights(w512), 50)
   x_now, P_now = reloc.state[:2]
   ones = torch.ones_like(P_now, dtype=torch.bool)
   pose_ms = cuda_ms(lambda: ransac.solve_pnp_from_maps(
@@ -280,8 +582,15 @@ def main():
   ops_ms = h * w * 70 / F32_FLOPS_PER_S * 1e3
   print(smi, flush=True)
   say("times", t0, gpu=gpu, nvidia_smi=smi, process_ms_per_frame=process_ms,
+      process_ms_per_frame_conv_kernels=process_conv_ms, process_turns=turns,
       fused_kernel_ms=kernel_ms, plain_ms=plain_ms, pose_solve_ms=pose_ms,
-      kernel_bytes=bytes_moved, total_seconds=round(time.time() - t_all, 1))
+      kernel_bytes=bytes_moved,
+      conv3x3_same_per_shape={str(k): v for k, v in same_rows.items()},
+      conv3x3_same_per_frame=same_frame,
+      conv3x3_gn_chain_per_shape={str(k): v for k, v in chain_rows.items()},
+      conv3x3_gn_chain_per_frame=chain_frame,
+      weight_prep_ms_512x512=weight_prep_ms,
+      total_seconds=round(time.time() - t_all, 1))
 
   bad = [m for m in FORBIDDEN if m in sys.modules]
   if bad:
@@ -295,6 +604,27 @@ def main():
       "ms": kernel_ms, "plain_ms": plain_ms,
       "bound_ms": max(bytes_ms, ops_ms),
       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+      "library_ms": None}, {
+      # conv kernels: times summed over one filter-step frame's calls
+      "name": "conv3x3_same", "route": "cuda",
+      "source": "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
+      "replaces": "kfnet_tpu/kernels/conv3x3.py:31",
+      "launches": conv_launches["conv3x3_same"],
+      "max_abs_err": max(v for k, v in conv_errs["conv3x3_same"].items()
+                         if "17, 23" not in k),
+      "ms": same_frame["ms"], "plain_ms": same_frame["plain_ms"],
+      "bound_ms": same_frame["bound_ms"],
+      "bound_by": same_frame["bound_by"],
+      "library_ms": same_frame["cudnn_ms"]}, {
+      "name": "conv3x3_gn_chain", "route": "cuda",
+      "source": "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
+      "replaces": "kfnet_tpu/kernels/conv3x3.py:57",
+      "launches": conv_launches["conv3x3_gn_chain"],
+      "max_abs_err": max(v["y"] for v in
+                         conv_errs["conv3x3_gn_chain"].values()),
+      "ms": chain_frame["ms"], "plain_ms": chain_frame["plain_ms"],
+      "bound_ms": chain_frame["bound_ms"],
+      "bound_by": chain_frame["bound_by"],
       "library_ms": None}]}), flush=True)
   torch.cuda.synchronize()
   print(json.dumps({"ok": True, "device": {

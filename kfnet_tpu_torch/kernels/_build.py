@@ -78,24 +78,45 @@ def build_dir() -> str:
   return path
 
 
+def _lib_path(name: str, sources) -> tuple[list, str]:
+  sources = [os.path.join(CSRC, s) for s in sources]
+  return sources, os.path.join(build_dir(),
+                               f"lib{name}-{cache_key(sources)}.so")
+
+
+def build_libraries(specs) -> None:
+  """Build every library of ``specs`` ((name, sources) pairs) that is not
+  on disk yet, one ``nvcc`` process each, all started together."""
+  jobs = []
+  try:
+    for name, sources in specs:
+      srcs, lib_path = _lib_path(name, sources)
+      if os.path.exists(lib_path):
+        continue
+      tmp = f"{lib_path}.{os.getpid()}.tmp"
+      cmd = nvcc_command(find_nvcc(), srcs, tmp)
+      jobs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True),
+                   cmd, tmp, lib_path))
+    for proc, cmd, tmp, lib_path in jobs:
+      try:
+        _, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+      except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: "
+                           f"{' '.join(cmd)}") from e
+      if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{err}")
+      os.replace(tmp, lib_path)  # atomic: a reader never sees a partial file
+  finally:
+    for proc, *_ in jobs:  # none outlives a failure
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 def load_library(name: str, sources) -> ctypes.CDLL:
   """Build (once per source hash on disk) and load ``sources`` as
   ``lib<name>-<hash>.so``. Callers keep the loaded library."""
-  sources = [os.path.join(CSRC, s) for s in sources]
-  key = cache_key(sources)
-  out_dir = build_dir()
-  lib_path = os.path.join(out_dir, f"lib{name}-{key}.so")
-  if not os.path.exists(lib_path):
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = nvcc_command(find_nvcc(), sources, tmp)
-    try:
-      res = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-      raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: "
-                         f"{' '.join(cmd)}\n{e.stderr or ''}") from e
-    if res.returncode != 0:
-      raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                         f"\n{res.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a reader never sees a partial file
-  return ctypes.CDLL(lib_path)
+  build_libraries([(name, sources)])
+  return ctypes.CDLL(_lib_path(name, sources)[1])

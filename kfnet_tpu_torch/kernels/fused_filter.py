@@ -21,6 +21,7 @@ import torch
 from kfnet_tpu_torch.core import kalman
 from kfnet_tpu_torch.core import warp as warp_lib
 
+LIBRARY = "kfnet_fused_filter"
 SOURCES = ("fused_filter.cu",)
 
 
@@ -31,7 +32,7 @@ def _lib():
   global _LIB
   if _LIB is None:
     from kfnet_tpu_torch.kernels import _build
-    lib = _build.load_library("kfnet_fused_filter", SOURCES)
+    lib = _build.load_library(LIBRARY, SOURCES)
     fn = lib.kfnet_fused_warp_kalman
     fn.restype = ctypes.c_int
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits

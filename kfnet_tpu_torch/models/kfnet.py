@@ -4,7 +4,9 @@
 One filter step: OFlowNet (flow, W) → warp of (x, P) → SCoordNet (z, V) →
 Kalman update with χ² consistency reset. The warp ∘ gain ∘ update inner
 piece runs as the CUDA kernel ``kernels/fused_filter.py`` when
-``use_fused_kernel`` is set (the JAX package's ``use_pallas``).
+``use_fused_kernel`` is set (the JAX package's ``use_pallas``). The nets'
+``conv_impl`` picks their conv kernels (``kernels/conv3x3.py``);
+``kernel_shapes`` lists the calls of one frame.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from kfnet_tpu_torch.core import warp as warp_lib
 from kfnet_tpu_torch.kernels import fused_filter
 from kfnet_tpu_torch.kernels.cost_volume import cost_volume
 from kfnet_tpu_torch.models import oflownet, scoordnet
+from kfnet_tpu_torch.nn import layers as L
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +138,35 @@ def filter_step(params, config: KFNetConfig, x_prev, P_prev, feat_prev,
   if prior is not None:
     aux["x_prior"], aux["P_prior"] = prior
   return x_post, P_post, feat_cur, aux
+
+
+def kernel_shapes(config: KFNetConfig,
+                  image_shape: Tuple[int, int, int] = (480, 640, 3),
+                  first: bool = False):
+  """The (h, w, cin, cout) of each conv kernel call of one frame, of
+  ``first_step`` when ``first`` else of ``filter_step``:
+  {"conv3x3_gn_chain": [...], "conv3x3_same": [...]}. The convs come from
+  the nets' own ``init``, run on the meta device (no weights)."""
+  sc, of = config.scoordnet, config.oflownet
+  gen = torch.Generator()
+  with L.trace_convs() as sc_convs:
+    scoordnet.init(gen, sc, image_shape, "meta")
+  with L.trace_convs() as of_convs:
+    oflownet.init(gen, of, image_shape, "meta")
+  if first:  # frame 0 runs OFlowNet's encoder only
+    of_convs = of_convs[:len(of.encoder_channels)]
+
+  def same(convs, impl):
+    return [c[:4] for c in convs if impl == "pallas_3x3"
+            and L._pallas_conv_eligible(*c, 1, "SAME")]
+
+  chain = []
+  if sc.conv_impl == "pallas_fused":  # trunk blocks k.., then the head block
+    chain = [c[:4] for c in
+             sc_convs[scoordnet._fused_suffix_start(sc):len(sc.channels) + 1]]
+  return {"conv3x3_gn_chain": chain,
+          "conv3x3_same": same(sc_convs, sc.conv_impl)
+                          + same(of_convs, of.conv_impl)}
 
 
 def first_step(params, config: KFNetConfig, image: torch.Tensor):

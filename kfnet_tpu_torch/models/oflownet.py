@@ -4,6 +4,8 @@ A shared encoder maps each frame to 1/8-resolution features; the cost
 volume correlates the current frame's against the previous frame's; a
 small U-Net decodes it into backward flow ``r·tanh(raw)`` (2 channels)
 and a process-noise variance ``exp(clip(logvar, ±12))`` (1 channel).
+With ``conv_impl="pallas_3x3"`` a single frame's eligible convs run the
+``conv3x3_same`` kernel (``kfnet.kernel_shapes`` lists them).
 """
 
 from __future__ import annotations
@@ -42,19 +44,21 @@ class OFlowNetConfig:
     return (2 * self.search_radius + 1) ** 2
 
 
-def _encoder(config: OFlowNetConfig) -> L.Layer:
+def _encoder(config: OFlowNetConfig, single_frame: bool = False) -> L.Layer:
   strides = scoordnet._adjusted_strides(config.encoder_strides,
                                         config.stem_s2d)
+  impl = L.frame_impl(config.conv_impl, single_frame)
   return L.serial(*[
       L.conv_block(c, 3, s, norm=config.norm, compute_dtype=config.dtype,
-                   impl=config.conv_impl)
+                   impl=impl)
       for c, s in zip(config.encoder_channels, strides)
   ])
 
 
-def _decoder_layers(config: OFlowNetConfig):
+def _decoder_layers(config: OFlowNetConfig, single_frame: bool = False):
   c0, c1, c2 = config.unet_channels
-  dt, nm, im = config.dtype, config.norm, config.conv_impl
+  dt, nm = config.dtype, config.norm
+  im = L.frame_impl(config.conv_impl, single_frame)
 
   def block(c, s):
     return L.conv_block(c, 3, s, norm=nm, compute_dtype=dt, impl=im)
@@ -87,11 +91,12 @@ def init(gen: torch.Generator, config: OFlowNetConfig,
                                         device)
   params["down1"], s1 = dec["down1"].init(gen, s0, device)
   params["down2"], s2 = dec["down2"].init(gen, s1, device)
+  # as in decode: each up-sampled map is cropped to its skip's, then joined
   params["up1"], u1 = dec["up1"].init(gen, s2, device)
-  params["fuse1"], f1 = dec["fuse1"].init(gen, (u1[0], u1[1], u1[2] + s1[2]),
+  params["fuse1"], f1 = dec["fuse1"].init(gen, (s1[0], s1[1], u1[2] + s1[2]),
                                           device)
   params["up0"], u0 = dec["up0"].init(gen, f1, device)
-  params["fuse0"], f0 = dec["fuse0"].init(gen, (u0[0], u0[1], u0[2] + s0[2]),
+  params["fuse0"], f0 = dec["fuse0"].init(gen, (s0[0], s0[1], u0[2] + s0[2]),
                                           device)
   params["head"], _ = dec["head"].init(gen, f0, device)
   return params
@@ -102,8 +107,8 @@ def encode(params, config: OFlowNetConfig, image: torch.Tensor):
   in ``compute_dtype``. uint8 frames are cast and scaled on the device."""
   image = scoordnet.ingest(scoordnet.maybe_space_to_depth(config, image))
   x, lead = scoordnet.to_nchw(image)
-  return scoordnet.from_nchw(_encoder(config).apply(params["encoder"], x),
-                             lead)
+  enc = _encoder(config, single_frame=image.dim() == 3)
+  return scoordnet.from_nchw(enc.apply(params["encoder"], x), lead)
 
 
 def _crop_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -114,7 +119,7 @@ def _crop_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 def decode(params, config: OFlowNetConfig, cv: torch.Tensor):
   """U-Net over the (..., h, w, K) cost volume -> (flow (..., h, w, 2),
   process variance (..., h, w, 1)), float32."""
-  dec = _decoder_layers(config)
+  dec = _decoder_layers(config, single_frame=cv.dim() == 3)
   x, lead = scoordnet.to_nchw(cv)
   e0 = dec["enc0"].apply(params["enc0"], x)
   d1 = dec["down1"].apply(params["down1"], e0)

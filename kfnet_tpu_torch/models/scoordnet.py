@@ -5,6 +5,12 @@ One RGB frame (H, W, 3) maps to a 1/8-resolution scene-coordinate map
 (H/8, W/8, 3) and a per-pixel measurement-noise variance (H/8, W/8, 1):
 a space-to-depth stem, the conv trunk, a conv head block and a float32
 1x1 head whose fourth channel is a log-variance clipped to ±12.
+
+``conv_impl`` "xla" runs every conv through ``torch.nn.functional``;
+"pallas_3x3" sends a single frame's eligible convs to the ``conv3x3_same``
+kernel; "pallas_fused" (GroupNorm only) runs a single frame's 1/8-res trunk
+as a chain of ``conv3x3_gn_chain`` kernels (``_apply_fused_trunk``). A
+batch of frames always takes the serial "xla" path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ class SCoordNetConfig:
   compute_dtype: str = "bfloat16"
   norm: str = "group"  # "group" | "none" | "ws"
   stem_s2d: int = 2
-  conv_impl: str = "xla"  # only "xla" (torch.nn.functional convs) is ported
+  conv_impl: str = "xla"  # "xla" | "pallas_3x3" | "pallas_fused"
 
   @property
   def dtype(self) -> torch.dtype:
@@ -61,21 +67,37 @@ def _adjusted_strides(strides, stem_s2d):
   return strides
 
 
-def build(config: SCoordNetConfig) -> L.Layer:
-  """Trunk + 4-channel head as one serial layer (the stem runs in apply)."""
+def _layer_list(config: SCoordNetConfig, single_frame: bool = False) -> list:
+  """Trunk blocks, the head conv block and the f32 1x1 head. Under
+  "pallas_fused" every layer is "xla": the fused trunk calls the chain
+  kernel itself."""
+  if config.conv_impl == "pallas_fused" and config.norm != "group":
+    # the chain's prologues and epilogues are GroupNorm passes
+    raise ValueError(
+        f"conv_impl='pallas_fused' requires norm='group' (got "
+        f"norm={config.norm!r}); use conv_impl='xla' or 'pallas_3x3'")
   strides = _adjusted_strides(config.strides, config.stem_s2d)
+  impl = ("xla" if config.conv_impl == "pallas_fused"
+          else L.frame_impl(config.conv_impl, single_frame))
   blocks = [
       L.conv_block(c, 3, s, norm=config.norm, compute_dtype=config.dtype,
-                   impl=config.conv_impl)
+                   impl=impl)
       for c, s in zip(config.channels, strides)
   ]
   head = [
       L.conv_block(config.head_channels, 3, 1, norm=config.norm,
-                   compute_dtype=config.dtype, impl=config.conv_impl),
+                   compute_dtype=config.dtype, impl=impl),
       # f32 1x1 head: coordinates and log-variance need more than bf16
       L.conv(4, 1, 1, use_bias=True, compute_dtype=torch.float32),
   ]
-  return L.serial(*blocks, *head)
+  return blocks + head
+
+
+def build(config: SCoordNetConfig, single_frame: bool = False) -> L.Layer:
+  """Trunk + 4-channel head as one serial layer (the stem runs in apply).
+  ``single_frame``: the layers will see one frame, so "pallas_3x3" convs
+  may take the kernel."""
+  return L.serial(*_layer_list(config, single_frame))
 
 
 def maybe_space_to_depth(config, image: torch.Tensor) -> torch.Tensor:
@@ -108,6 +130,59 @@ def init(gen: torch.Generator, config: SCoordNetConfig,
   return params
 
 
+def _fused_suffix_start(config: SCoordNetConfig) -> int:
+  """First trunk index from which every remaining conv is fused-trunk
+  eligible (stride 1, cin/cout multiples of 128); len(channels)+1 (nothing
+  fused) if none is, or if the head conv block, which the fused loop
+  always includes, is not."""
+  strides = _adjusted_strides(config.strides, config.stem_s2d)
+  f = config.stem_s2d
+  cins = [3 * f * f if f > 1 else 3] + list(config.channels)
+  n = len(config.channels)
+  if config.head_channels % 128 or cins[-1] % 128:
+    return n + 1
+  start = n + 1
+  for i in range(n - 1, -1, -1):
+    if strides[i] == 1 and cins[i] % 128 == 0 and cins[i + 1] % 128 == 0:
+      start = i
+    else:
+      break
+  return start
+
+
+def _apply_fused_trunk(params, config: SCoordNetConfig,
+                       image: torch.Tensor) -> torch.Tensor:
+  """One (H', W', C) frame after the stem: the serial prefix, then the
+  1/8-res GroupNorm trunk as a chain of ``conv3x3_gn_chain`` kernels whose
+  prologues apply the previous layer's GroupNorm + ReLU and whose epilogues
+  give the sums for the next, then a float32 normalize + ReLU and the f32
+  1x1 head. Returns (1, 4, h, w) float32."""
+  from kfnet_tpu_torch.kernels.conv3x3 import conv3x3_gn_chain, gn_scale_shift
+
+  k = _fused_suffix_start(config)
+  layers_list = _layer_list(config, single_frame=True)
+  n_blocks = len(config.channels)
+  x, _ = to_nchw(image)
+  for i in range(k):  # serial prefix (strided or narrow layers)
+    x = layers_list[i].apply(params[i], x)
+  x = L.frame_hwc(x)
+  h, w, c = x.shape
+  scale = torch.ones((c,), dtype=torch.float32, device=x.device)
+  shift = torch.zeros((c,), dtype=torch.float32, device=x.device)
+  prologue_relu = False  # the prefix output is already normalized + relu'd
+  for i in range(k, n_blocks + 1):  # trunk blocks k..n-1, then the head block
+    # the chain takes bf16 in any config, as the JAX wrapper casts
+    x, s1, s2 = conv3x3_gn_chain(x.to(torch.bfloat16), scale, shift,
+                                 params[i][0]["w"],
+                                 prologue_relu=prologue_relu)
+    gn = params[i][1]
+    scale, shift = gn_scale_shift(s1, s2, h * w, gn["scale"], gn["bias"])
+    prologue_relu = True
+  x = torch.relu(x.to(torch.float32) * scale + shift)
+  return layers_list[n_blocks + 1].apply(params[n_blocks + 1],
+                                         x.permute(2, 0, 1)[None])
+
+
 def to_nchw(x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
   """(..., H, W, C) -> (B, C, H, W) view (channels-last in memory)."""
   lead = tuple(x.shape[:-3])
@@ -131,8 +206,13 @@ def apply(params, config: SCoordNetConfig, image: torch.Tensor):
   """(..., H, W, 3) image in [0, 1] or uint8 (or its s2d form) ->
   (coords (..., H/8, W/8, 3), variance (..., H/8, W/8, 1)), float32."""
   image = ingest(maybe_space_to_depth(config, image))
-  x, lead = to_nchw(image)
-  out = from_nchw(build(config).apply(params, x), lead).to(torch.float32)
+  single = image.dim() == 3
+  if config.conv_impl == "pallas_fused" and single:
+    out = from_nchw(_apply_fused_trunk(params, config, image), ())
+  else:
+    x, lead = to_nchw(image)
+    out = from_nchw(build(config, single).apply(params, x), lead)
+  out = out.to(torch.float32)
   raw = out[..., :3]
   log_var = torch.clamp(out[..., 3:4], LOG_VAR_MIN, LOG_VAR_MAX)
   offset = _offset_tensor(tuple(config.coord_offset), out.device)

@@ -19,10 +19,17 @@ What is carried over exactly from the JAX package:
     cast back to the input dtype.
   * space_to_depth's channel order (fy·f + fx)·C + c, which is not
     ``pixel_unshuffle``'s.
+  * ``impl="pallas_3x3"``: a single frame's eligible convs (the JAX
+    package's ``_pallas_conv_eligible``, its TPU byte bound included) run
+    the ``conv3x3_same`` kernel, which adds the bias before its one
+    rounding; every other conv takes the path above. The JAX package
+    decides "single frame" by ``x.ndim == 3``; here the models build the
+    layers for one frame (``frame_impl``) and the layer takes (1, C, H, W).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -68,11 +75,76 @@ def standardize_weights(w, gain, eps: float = 1e-8):
                                                               None]
 
 
+# "pallas_fused" is SCoordNet's fused trunk; the layers themselves run it
+# as "xla", as in the JAX package
+CONV_IMPLS = ("xla", "pallas_3x3", "pallas_fused")
+
+
 def _check_impl(impl):
-  if impl != "xla":
+  if impl == "winograd":
     raise NotImplementedError(
-        f"conv_impl={impl!r} is not ported yet; the port runs the convs of "
-        "conv_impl='xla' through torch.nn.functional")
+        "conv_impl='winograd' is not ported yet; use 'xla' or 'pallas_3x3'")
+  if impl not in CONV_IMPLS:
+    raise ValueError(f"conv_impl={impl!r}: expected one of {CONV_IMPLS}")
+
+
+def frame_impl(impl: str, single_frame: bool) -> str:
+  """The impl a model builds its layers with: ``pallas_3x3`` applies to one
+  frame only (the JAX package's ``x.ndim == 3``); a batch runs ``xla``."""
+  return "xla" if impl == "pallas_3x3" and not single_frame else impl
+
+
+def _pallas_conv_eligible(h, w, cin, cout, kernel, stride, dilation,
+                          padding):
+  """The JAX package's rule, byte bound included (``nn/layers.py``): SAME
+  stride-1 3x3 convs with cin and cout multiples of 128 whose TPU working
+  set fits its VMEM. Kept as it is so that the port rounds where the JAX
+  package rounds, layer for layer."""
+  if not (kernel == 3 and stride == 1 and dilation == 1
+          and padding == "SAME"):
+    return False
+  if cin % 128 or cout % 128:
+    return False
+  pad_bytes = (h + 2) * (w + 2) * cin * 2
+  acc_bytes = h * w * 128 * 4
+  x_bytes = h * w * cin * 2
+  return pad_bytes + acc_bytes + x_bytes < 11 * 1024 * 1024
+
+
+# Single-frame (1, C, H, W) inputs that were not channels-last in memory and
+# were copied before a conv kernel: counted, so that a run shows them.
+layout_copies = 0
+
+
+def frame_hwc(x: torch.Tensor) -> torch.Tensor:
+  """(1, C, H, W) -> the (H, W, C) contiguous map the conv kernels take:
+  a view of channels-last memory, else a counted copy."""
+  global layout_copies
+  if x.dim() != 4 or x.shape[0] != 1:
+    raise ValueError(f"the conv kernels take one frame (1, C, H, W), got "
+                     f"{tuple(x.shape)}")
+  y = x[0].permute(1, 2, 0)
+  if not y.is_contiguous():
+    layout_copies += 1
+    y = y.contiguous()
+  return y
+
+
+# While ``trace_convs`` runs, every ``conv`` init appends the (h, w, cin,
+# cout, kernel, stride) of the conv it sizes.
+_conv_trace = None
+
+
+@contextlib.contextmanager
+def trace_convs():
+  """Collect the geometry of each ``conv`` that an ``init`` inside the
+  block sizes, in init order (a net's order of calls)."""
+  global _conv_trace
+  outer, _conv_trace = _conv_trace, []
+  try:
+    yield _conv_trace
+  finally:
+    _conv_trace = outer
 
 
 def _bias_round(y, params, compute_dtype):
@@ -83,12 +155,18 @@ def _bias_round(y, params, compute_dtype):
 def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
          compute_dtype="bfloat16", impl: str = "xla",
          weight_standardize: bool = False) -> Layer:
-  """2D SAME convolution with the JAX package's padding and rounding."""
+  """2D SAME convolution with the JAX package's padding and rounding.
+
+  impl: "xla" (``torch.nn.functional``) or "pallas_3x3" (the
+  ``conv3x3_same`` kernel where ``_pallas_conv_eligible`` holds; the layer
+  then takes one frame)."""
   _check_impl(impl)
   cd = as_dtype(compute_dtype)
 
   def init(gen, in_shape, device):
     h, w, c = in_shape
+    if _conv_trace is not None:
+      _conv_trace.append((h, w, c, out_ch, kernel, stride))
     params = {"w": _fan_in_init(gen, (out_ch, c, kernel, kernel),
                                 kernel * kernel * c, device)}
     if weight_standardize:
@@ -101,6 +179,14 @@ def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
     wgt = params["w"]
     if weight_standardize:
       wgt = standardize_weights(wgt, params["gain"])
+    if impl == "pallas_3x3" and _pallas_conv_eligible(
+        x.shape[-2], x.shape[-1], x.shape[-3], out_ch, kernel, stride, 1,
+        "SAME"):
+      from kfnet_tpu_torch.kernels import conv3x3
+      # the kernel casts x to bf16 in any config, as the JAX wrapper does
+      y = conv3x3.conv3x3_same(frame_hwc(x.to(torch.bfloat16)), wgt,
+                               params.get("b"), relu=False, out_dtype=cd)
+      return y.permute(2, 0, 1)[None]
     x = x.to(cd)
     (t, b) = same_pads(x.shape[-2], kernel, stride)
     (l, r) = same_pads(x.shape[-1], kernel, stride)

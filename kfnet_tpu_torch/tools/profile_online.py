@@ -4,7 +4,11 @@ width (640x480, default KFNetConfig, weights from a seed), for the whole
 frame, the filter step alone and the pose solve alone, plus the fused
 warp + Kalman kernel's device time.
 
-    python -m kfnet_tpu_torch.tools.profile_online [--frames 4]
+    python -m kfnet_tpu_torch.tools.profile_online [--frames 4] [--conv-kernels]
+
+``--conv-kernels`` profiles the conv-kernel configuration instead of the
+default one: SCoordNet ``conv_impl="pallas_fused"`` and OFlowNet
+``"pallas_3x3"``, whose convs run the CUDA kernels of ``kernels/conv3x3.py``.
 
 Prints one JSON line. Device times come from a torch.profiler (CUPTI)
 trace; wall times from the host clock around synchronised runs.
@@ -27,8 +31,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from kfnet_tpu_torch.eval.online import OnlineRelocalizer
 from kfnet_tpu_torch.kernels import fused_filter
-from kfnet_tpu_torch.models import kfnet
+from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
 from kfnet_tpu_torch.pose import ransac
+
+# the port's own kernels, by a part of their names in the trace
+OWN_KERNELS = ("fused_warp_kalman", "conv3x3_kernel", "moments_kernel")
 
 
 def trace_kernels(fn, n):
@@ -63,10 +70,14 @@ def summarize(kernels, wall_ms, n):
   by_name = collections.Counter()
   for name, _, dur in kernels:
     by_name[name[:70]] += dur
+  own = {k: [d for name, _, d in kernels if k in name] for k in OWN_KERNELS}
   return {"wall_ms": wall_ms,
           "device_busy_ms": busy / 1e3 / n,
           "device_idle_share": 1.0 - busy / (spans[-1][1] - spans[0][0]),
           "kernels_per_call": len(kernels) / n,
+          "own_kernels_per_call": {k: len(v) / n for k, v in own.items()},
+          "own_kernels_device_ms": {k: sum(v) / 1e3 / n
+                                    for k, v in own.items()},
           "top_kernels_ms": {k: v / 1e3 / n
                              for k, v in by_name.most_common(6)}}
 
@@ -75,9 +86,15 @@ def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--frames", type=int, default=4)
   ap.add_argument("--seed", type=int, default=0)
+  ap.add_argument("--conv-kernels", action="store_true",
+                  help="SCoordNet pallas_fused + OFlowNet pallas_3x3")
   args = ap.parse_args()
   dev = torch.device("cuda")
   cfg = kfnet.KFNetConfig()
+  if args.conv_kernels:
+    cfg = kfnet.KFNetConfig(
+        scoordnet=scoordnet.SCoordNetConfig(conv_impl="pallas_fused"),
+        oflownet=oflownet.OFlowNetConfig(conv_impl="pallas_3x3"))
   params = kfnet.init(args.seed, cfg, device=dev)
   K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], np.float32)
   frames = np.random.default_rng(args.seed).integers(
@@ -89,7 +106,8 @@ def main():
     full.process(f)
     nopose.process(f)
   n = args.frames
-  out = {"gpu": torch.cuda.get_device_name(0), "torch": torch.__version__}
+  out = {"gpu": torch.cuda.get_device_name(0), "torch": torch.__version__,
+         "config": "conv_kernels" if args.conv_kernels else "default"}
   try:
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

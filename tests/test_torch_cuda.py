@@ -7,18 +7,27 @@ numpy and kfnet_tpu_torch, so it runs on a machine without JAX:
 
 (tests/conftest.py configures JAX, hence ``--noconftest``.)
 
-The kernel is held against its plain PyTorch version on the card at the
-tolerances of tests/test_pallas_fused.py: atol 2e-5 on x, rtol 2e-5 on P,
-the consistency mask equal.
+The fused filter kernel is held against its plain PyTorch version on the
+card at the tolerances of tests/test_pallas_fused.py: atol 2e-5 on x, rtol
+2e-5 on P, the consistency mask equal. The conv kernels are held against
+theirs at chip_smoke.py's: float32 outputs and Σy within 3e-5 of the
+largest |value|, Σy² within rtol 5e-5, bf16 outputs within one bf16
+rounding step (the kernels sum the same exact bf16 products in another
+order); conv3x3_gn_chain gives the same bits twice. The small float32
+conv-kernel configuration on the card is held against the same on the CPU
+at tests/test_torch_conv3x3.py's tolerances for that config.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import kfnet_tpu_torch
 from kfnet_tpu_torch.eval.online import OnlineRelocalizer
+from kfnet_tpu_torch.kernels import conv3x3 as tc3
 from kfnet_tpu_torch.kernels import fused_filter as tff
 from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
+from kfnet_tpu_torch.nn import layers as L
 
 pytestmark = pytest.mark.cuda
 
@@ -35,6 +44,7 @@ CASES = [
 def cuda():
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device and nvcc")
+  kfnet_tpu_torch.set_fp32_precision()  # the plain versions' f32 products
   return torch.device("cuda")
 
 
@@ -99,3 +109,110 @@ def test_online_tiny_on_card_matches_cpu(cuda):
   for g, w in zip(on_card.state, on_cpu.state):
     np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
                                atol=2e-5)
+
+
+def conv_inputs(dev, h, w, cin, cout, seed=0):
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  x = torch.randn((h, w, cin), generator=gen, device=dev).bfloat16()
+  wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (
+      2.0 / (9 * cin)) ** 0.5
+  b = torch.randn((cout,), generator=gen, device=dev)
+  scale = torch.rand((cin,), generator=gen, device=dev) + 0.5
+  shift = torch.randn((cin,), generator=gen, device=dev) * 0.3
+  return x, wt, b, scale, shift
+
+
+def assert_held(got, want, rtol, atol_of_max):
+  g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+  np.testing.assert_allclose(g, w, rtol=rtol,
+                             atol=atol_of_max * np.abs(w).max())
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(60, 80, 128, 128),
+                                          (15, 20, 256, 256),
+                                          (17, 23, 256, 128)])
+def test_conv3x3_same_kernel_matches_plain(cuda, h, w, cin, cout):
+  x, wt, b, _, _ = conv_inputs(cuda, h, w, cin, cout)
+  before = tc3.conv3x3_same.launches
+  for bias, relu, od in ((b, True, torch.float32),
+                         (None, False, torch.bfloat16)):
+    got = tc3.conv3x3_same(x, wt, bias, relu, od)
+    want = tc3.conv3x3_same_reference(x, wt, bias, relu, od)
+    torch.cuda.synchronize()
+    assert got.dtype == od
+    assert_held(got, want, 0.0 if od == torch.float32 else 2.0 ** -7, 3e-5)
+  assert tc3.conv3x3_same.launches == before + 2
+
+
+@pytest.mark.parametrize("h,w,cin,cout,relu", [(60, 80, 128, 256, False),
+                                               (60, 80, 512, 512, True),
+                                               (17, 23, 256, 128, True)])
+def test_gn_chain_kernel_matches_plain(cuda, h, w, cin, cout, relu):
+  x, wt, _, scale, shift = conv_inputs(cuda, h, w, cin, cout)
+  before = tc3.conv3x3_gn_chain.launches
+  got = tc3.conv3x3_gn_chain(x, scale, shift, wt, relu)
+  again = tc3.conv3x3_gn_chain(x, scale, shift, wt, relu)
+  want = tc3.conv3x3_gn_chain_reference(x, scale, shift, wt, relu)
+  torch.cuda.synchronize()
+  assert tc3.conv3x3_gn_chain.launches == before + 2
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+  assert_held(got[0], want[0], 2.0 ** -7, 3e-5)
+  assert_held(got[1], want[1], 0.0, 3e-5)
+  assert_held(got[2], want[2], 5e-5, 0.0)
+
+
+def test_conv_kernels_reject_bad_inputs(cuda):
+  x, wt, _, scale, shift = conv_inputs(cuda, 12, 16, 128, 128)
+  with pytest.raises(TypeError):
+    tc3.conv3x3_same(x.float(), wt)
+  shifted = x.reshape(-1)[1:1 + 12 * 15 * 128].view(12, 15, 128)
+  with pytest.raises(ValueError, match="aligned"):  # 2 bytes off
+    tc3.conv3x3_same(shifted, wt)
+  with pytest.raises(ValueError, match="contiguous"):
+    tc3.conv3x3_same(x.transpose(0, 1), wt)
+  with pytest.raises(ValueError, match="is on"):
+    tc3.conv3x3_gn_chain(x, scale.cpu(), shift, wt)
+
+
+def test_conv_kernel_slice_on_card_matches_cpu(cuda):
+  """The conv-kernel configuration, small and float32: the card (the
+  kernels) against the CPU (their plain versions, with the same rounding
+  points), first_step and two filter_steps on the same weights and frames.
+  Tolerances: tests/test_torch_conv3x3.py's for this config against the
+  JAX package, about 3x the deviation measured there."""
+  cfg = kfnet.KFNetConfig(
+      scoordnet=scoordnet.SCoordNetConfig(
+          channels=(8, 16, 128, 128), strides=(2, 2, 2, 1),
+          head_channels=128, stem_s2d=1, compute_dtype="float32",
+          conv_impl="pallas_fused"),
+      oflownet=oflownet.OFlowNetConfig(
+          encoder_channels=(8, 16, 128, 128), encoder_strides=(2, 2, 2, 1),
+          search_radius=2, stem_s2d=1, compute_dtype="float32",
+          conv_impl="pallas_3x3"))
+  params = kfnet.init(0, cfg, (48, 64, 3), device="cpu")
+  frames = np.random.default_rng(0).uniform(0, 1, (3, 48, 64, 3)).astype(
+      np.float32)
+  before = (tc3.conv3x3_same.launches, tc3.conv3x3_gn_chain.launches)
+  runs = {}
+  for dev in (cuda, torch.device("cpu")):
+    p = L.tree_map(lambda t: t.to(dev), params)
+    imgs = [torch.from_numpy(f).to(dev) for f in frames]
+    x, P, feat = kfnet.first_step(p, cfg, imgs[0])
+    for img in imgs[1:]:
+      x, P, feat, aux = kfnet.filter_step(p, cfg, x, P, feat, img)
+    runs[dev.type] = {k: v.cpu().numpy() for k, v in
+                      dict(aux, x=x, P=P).items()}
+  first = kfnet.kernel_shapes(cfg, (48, 64, 3), first=True)
+  later = kfnet.kernel_shapes(cfg, (48, 64, 3))
+  assert tc3.conv3x3_same.launches - before[0] == (
+      len(first["conv3x3_same"]) + 2 * len(later["conv3x3_same"])) == 13
+  assert tc3.conv3x3_gn_chain.launches - before[1] == (
+      len(first["conv3x3_gn_chain"]) + 2 * len(later["conv3x3_gn_chain"]))
+  got, want = runs["cuda"], runs["cpu"]
+  for k in ("x", "P", "z", "V", "flow", "W"):
+    assert np.isfinite(got[k]).all(), k
+  for k, atol in (("x", 1.5e-2), ("z", 1.5e-2), ("flow", 3.5e-2)):
+    np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol,
+                               err_msg=k)
+  for k, rtol in (("P", 1.5e-2), ("V", 1.5e-2), ("W", 2e-2)):
+    np.testing.assert_allclose(got[k], want[k], rtol=rtol, err_msg=k)

@@ -43,6 +43,8 @@ def test_no_forbidden_imports(path):
 def test_package_import_leaves_jax_out():
   code = ("import sys, kfnet_tpu_torch.eval.online, kfnet_tpu_torch.convert;"
           "import kfnet_tpu_torch.kernels.fused_filter;"
+          "import kfnet_tpu_torch.kernels.conv3x3;"
+          "import kfnet_tpu_torch.tools.profile_online;"
           f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules];"
           "print(bad); sys.exit(1 if bad else 0)")
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -106,3 +108,11 @@ def test_chip_smoke_fails_alone(tmp_path):
   res = _run_smoke(tmp_path)
   assert res.returncode != 0
   assert '"ok"' not in res.stdout
+
+
+def test_every_kernel_source_is_in_the_checkout():
+  from kfnet_tpu_torch.kernels import conv3x3, fused_filter
+  for mod in (conv3x3, fused_filter):
+    for src in mod.SOURCES:
+      assert (ROOT / "kfnet_tpu_torch" / "kernels" / "csrc" / src).is_file()
+  assert conv3x3.LIBRARY != fused_filter.LIBRARY

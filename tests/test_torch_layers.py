@@ -153,5 +153,6 @@ def test_conv_block_matches(norm):
 
 
 def test_unported_conv_impl_raises():
+  # "pallas_3x3" and "pallas_fused" are ported; Winograd is not yet
   with pytest.raises(NotImplementedError):
-    tL.conv(8, 3, 1, impl="pallas_3x3")
+    tL.conv(8, 3, 1, impl="winograd")
