@@ -12,11 +12,18 @@ Phases, one line each, with their seconds:
   3. the fused warp + Kalman kernel against its plain PyTorch version on
      the card, at the main path's 60x80 map (r=4, χ² 2.365974), with
      out-of-bounds-heavy flow, and on an odd 17x23 map (r=3): atol 2e-5 on
-     x, rtol 2e-5 on P, the consistency mask equal;
+     x, rtol 2e-5 on P, the consistency mask equal; then a loss on its
+     outputs at 60x80 with inputs that require grad: the gradients of all
+     six inputs through its autograd node (forward: the kernel; backward:
+     autograd through the plain version) against autograd through the
+     plain version, at the golden tolerance (rtol 5e-4, atol 5e-5);
   4. the conv kernels against their plain versions on the card at every
      distinct shape of the conv-kernel configuration's path (below), plus
-     an odd 17x23 map for conv3x3_same; conv3x3_gn_chain twice, bit-equal
-     (its sums are reduced in a fixed order). Tolerances: float32 outputs
+     an odd 17x23 map and a 13x21 map (neither a multiple of the 8 x 8
+     pixel tile) at cout 128 and 512; conv3x3_gn_chain twice, bit-equal
+     (its sums are reduced in a fixed order), and conv3x3_same twice where
+     it splits K (15x20, 30x40: partials summed in split order), bit-equal.
+     Tolerances: float32 outputs
      and Σy within 3e-5 of the largest |value| (the kernel sums the same
      exact bf16 products in another order); Σy² within rtol 5e-5 (the same
      reordering, squared); bf16 outputs within one bf16 rounding step
@@ -34,16 +41,27 @@ Phases, one line each, with their seconds:
      kernel's launches equal the count kfnet.kernel_shapes gives for the
      config (12 chain calls a frame; conv3x3_same once on the first frame
      and 6 times on each later one; the fused update once a frame after the
-     first), outputs finite, no host sync inside a frame; every kernel
+     first), outputs finite, no host sync inside a frame, and the bf16
+     weight layout copied once per weight tensor, not per frame (no copy
+     after the second frame); every kernel
      call of one frame's (z, V) and one pair's (flow, W) within phase 4's
      tolerances of its plain version on its own inputs; those outputs
      within BOUNDS of the same path with each kernel's plain version in
      its place, and of the default config's;
   7. pose on known data: 4800 correspondences, 30% outliers, solved on the
      card to within 1 cm and 0.1°;
-  8. times with CUDA events: process() per frame in both configurations,
-     each kernel at its main-path shapes beside its plain version and
-     cuDNN's conv at the same shape, the pose solve.
+  8. times with CUDA events: process() per frame in both configurations;
+     each kernel through its wrapper called back to back, beside its
+     plain version and (conv3x3_same) cuDNN's conv at the same shape,
+     also back to back (the kernels line's ms, plain_ms, library_ms; the
+     conv kernels at each distinct main-path shape, summed over a
+     filter-step frame); each kernel alone: the fused update and every
+     conv kernel call of one served filter-step frame on that call's own
+     inputs, bias, ReLU and output type (prepared weights, preallocated
+     outputs), and cuDNN's conv at each call's shape, as device time from
+     a CUDA graph of 20 launches (kfnet_tpu_torch/tools/conv_tiles.py;
+     the kernels line's alone_ms, library_alone_ms); the bounds; the pose
+     solve.
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
 nothing under artifacts/; writes only the kernel build directory.
 """
@@ -61,14 +79,17 @@ import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+# the conv kernels' tolerances (TOL_F32_SUM: f32 outputs and Σy, of the
+# largest |value|; TOL_S2: Σy², rtol; BF16_STEP: one bf16 rounding step,
+# rtol), their check against the plain version and the H100 SXM's memory
+# rate live beside the conv kernels' timing tool, which checks the same
+from kfnet_tpu_torch.tools.conv_tiles import (  # noqa: E402
+    BF16_STEP, HBM_BYTES_PER_S, TOL_F32_SUM, TOL_S2, call_errors)
+
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TOL_X, TOL_P = 2e-5, 2e-5   # the kernel against its plain version
 TOL_PATH = 1e-3             # fused vs unfused slice, x and P (rtol, atol)
-BF16_PEAK_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
-TOL_F32_SUM = 3e-5          # conv kernels: f32 outputs and Σy, of max |value|
-TOL_S2 = 5e-5               # conv3x3_gn_chain: Σy², rtol
-BF16_STEP = 2.0 ** -7       # one bf16 rounding step, rtol
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5  # fused kernel's gradients: golden tols
 # conv-kernel config against the default one, and against the same path
 # with each conv kernel's plain version in its place, same weights and
 # frames: the largest |difference| over the largest |value| of the other
@@ -116,6 +137,33 @@ def filter_inputs(rng, h, w, r, oob):
   return x, P, flow, W, z, V
 
 
+def fused_grads(ff, args, r, thr):
+  """Gradients of a loss on the fused update's outputs through the kernel's
+  autograd node and through the plain version, on the card; raises unless
+  all six agree at the golden tolerance. Returns the largest |difference|
+  of each."""
+  import numpy as np
+  import torch
+  g = torch.Generator(device=args[0].device).manual_seed(7)
+  gx = torch.randn(args[0].shape, generator=g, device=args[0].device)
+  gP = torch.randn(args[1].shape, generator=g, device=args[0].device)
+  grads = []
+  for fn in (ff.fused_warp_kalman, ff.fused_warp_kalman_reference):
+    ts = [a.detach().clone().requires_grad_(True) for a in args]
+    x, P, _ = fn(*ts, radius=r, threshold=thr)
+    grads.append(torch.autograd.grad(
+        torch.sum(x * gx) + torch.sum(P * gP), ts))
+  out = {}
+  for name, k, p in zip(("x_prev", "P_prev", "flow", "W", "z", "V"),
+                        *grads):
+    out[name] = (k - p).abs().max().item()
+    if not (p.abs().max().item() > 0 and np.allclose(
+        k.cpu().numpy(), p.cpu().numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)):
+      raise AssertionError(f"fused kernel gradient of {name} disagrees: "
+                           f"{out[name]}")
+  return out
+
+
 def rodrigues(w):
   import numpy as np
   th = float(np.linalg.norm(w))
@@ -155,64 +203,38 @@ def cuda_ms(fn, n):
   return start.elapsed_time(end) / n
 
 
-def conv_inputs(gen, h, w, cin, cout, dev):
-  """A bf16 map, He-scaled weights, a bias and a GroupNorm (scale, shift)."""
-  import torch
-  x = torch.randn((h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
-  wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (
-      2.0 / (9 * cin)) ** 0.5
-  b = torch.randn((cout,), generator=gen, device=dev)
-  scale = torch.rand((cin,), generator=gen, device=dev) + 0.5
-  shift = torch.randn((cin,), generator=gen, device=dev) * 0.3
-  return x, wt, b, scale, shift
+# beyond the main path's shapes: an odd map, and a map whose rows and
+# columns are not multiples of the 8 x 8 pixel tile, at cout 128 and 512
+EXTRA_SAME = [(17, 23, 256, 128), (13, 21, 128, 128), (13, 21, 128, 512)]
+EXTRA_CHAIN = [(17, 23, 256, 128), (13, 21, 256, 512)]
 
 
-def held(got, want, rtol, atol_of_max):
-  """(max |got - want|, whether |got - want| <= rtol |want| + atol_of_max
-  max |want| holds everywhere)."""
-  g, w = got.float(), want.float()
-  d = (g - w).abs()
-  lim = rtol * w.abs() + atol_of_max * w.abs().max()
-  return d.max().item(), bool((d <= lim).all())
-
-
-def call_errors(c3, name, args, kwargs, got):
-  """One conv kernel call's result against its plain version on the same
-  arguments: ({output: max |difference|}, whether each is in tolerance)."""
-  import torch
-  want = getattr(c3, name + "_reference")(*args, **kwargs)
-  if name == "conv3x3_same":
-    rtol = BF16_STEP if got.dtype == torch.bfloat16 else 0.0
-    err, ok = held(got, want, rtol, TOL_F32_SUM)
-    return {"y": err}, ok
-  ey, oky = held(got[0], want[0], BF16_STEP, TOL_F32_SUM)
-  e1, ok1 = held(got[1], want[1], 0.0, TOL_F32_SUM)
-  e2, ok2 = held(got[2], want[2], TOL_S2, 0.0)
-  return {"y": ey, "s1": e1, "s2": e2}, oky and ok1 and ok2
-
-
-def check_conv_kernels(c3, gen, dev, same_shapes, chain_shapes):
+def check_conv_kernels(c3, conv_inputs, gen, dev, same_shapes, chain_shapes):
   """Each conv kernel against its plain version; raises on a miss."""
   import torch
-  out = {"conv3x3_same": {}, "conv3x3_gn_chain": {}}
-  for shape in same_shapes + [(17, 23, 256, 128)]:
+  out = {"conv3x3_same": {}, "conv3x3_gn_chain": {}, "same_splits": {}}
+  for shape in same_shapes + EXTRA_SAME:
     x, wt, b, _, _ = conv_inputs(gen, *shape, dev)
+    splits = c3.plan(*shape, sms=c3.sm_count(dev.index)).splits
     for bias, relu, od in ((b, True, torch.float32),
                            (None, False, torch.bfloat16)):
       args = (x, wt, bias, relu, od)
-      errs, ok = call_errors(c3, "conv3x3_same", args, {},
-                             c3.conv3x3_same(*args))
+      got = c3.conv3x3_same(*args)
+      errs, ok = call_errors("conv3x3_same", args, {}, got)
+      same_twice = torch.equal(got, c3.conv3x3_same(*args))
       err = errs["y"]
       key = f"{shape}/{'f32_bias_relu' if relu else 'bf16_layer'}"
       out["conv3x3_same"][key] = err
-      if not ok:
-        raise AssertionError(f"conv3x3_same disagrees at {key}: {err}")
-  for i, shape in enumerate(chain_shapes):
+      out["same_splits"][str(shape)] = splits
+      if not (ok and same_twice):
+        raise AssertionError(f"conv3x3_same disagrees at {key}: {err}, "
+                             f"bit-equal twice: {same_twice}")
+  for i, shape in enumerate(chain_shapes + EXTRA_CHAIN):
     x, wt, _, scale, shift = conv_inputs(gen, *shape, dev)
     args = (x, scale, shift, wt, i > 0)
     got = c3.conv3x3_gn_chain(*args)
     again = c3.conv3x3_gn_chain(*args)
-    errs, ok = call_errors(c3, "conv3x3_gn_chain", args, {}, got)
+    errs, ok = call_errors("conv3x3_gn_chain", args, {}, got)
     same_twice = all(torch.equal(a, b) for a, b in zip(got, again))
     out["conv3x3_gn_chain"][str(shape)] = dict(
         errs, prologue_relu=i > 0, bit_equal_twice=same_twice)
@@ -245,7 +267,7 @@ def check_calls(c3, calls):
   for name, log in calls.items():
     worst = {}
     for args, kwargs, got in log:
-      errs, ok = call_errors(c3, name, args, kwargs, got)
+      errs, ok = call_errors(name, args, kwargs, got)
       if not ok:
         raise AssertionError(f"{name} disagrees in the path at "
                              f"{tuple(args[0].shape)}: {errs}")
@@ -264,28 +286,16 @@ def deviation(got, want, relative):
           "max_rel": d.max().item() / scale}
 
 
-def conv_bound_ms(h, w, cin, cout, chain):
-  """The least time for one call: bf16 tensor-core operations at peak, or
-  its bytes (x, the float32 weights, y; the chain's scale, shift and sums
-  too) at the memory rate, whichever is larger."""
-  ops = 2 * h * w * 9 * cin * cout
-  nbytes = h * w * cin * 2 + 9 * cin * cout * 4 + h * w * cout * 2
-  if chain:
-    nbytes += 2 * cin * 4 + 2 * cout * 4
-  ops_ms = ops / BF16_PEAK_FLOPS_PER_S * 1e3
-  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-  return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                 else "bytes")
-
-
-def time_conv_kernels(c3, gen, dev, shapes, chain):
-  """Per distinct shape: the kernel, its plain version and cuDNN's conv
-  (bf16, channels-last) in ms per call, and the call's bound."""
+def time_conv_kernels(c3, conv_tiles, gen, dev, shapes, chain):
+  """Per distinct shape, ms per call by CUDA events, called back to back:
+  the wrapper (bf16 output, no bias; the chain's prologue ReLU after its
+  first shape), its plain version and cuDNN's bf16 channels-last conv
+  (``F.conv2d``); and the call's bound."""
   import torch
   import torch.nn.functional as F
   rows = {}
   for i, shape in enumerate(shapes):
-    x, wt, _, scale, shift = conv_inputs(gen, *shape, dev)
+    x, wt, _, scale, shift = conv_tiles.inputs(gen, *shape, dev)
     if chain:
       relu = i > 0
       kern = lambda: c3.conv3x3_gn_chain(x, scale, shift, wt, relu)
@@ -296,7 +306,7 @@ def time_conv_kernels(c3, gen, dev, shapes, chain):
                                                 torch.bfloat16)
     xl = x.permute(2, 0, 1)[None]  # channels-last (1, C, H, W) view
     wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    bound, by = conv_bound_ms(*shape, chain)
+    bound, by = conv_tiles.bound_ms(*shape, chain=chain)
     rows[shape] = {"ms": cuda_ms(kern, 30), "plain_ms": cuda_ms(plain, 10),
                    "cudnn_ms": cuda_ms(lambda: F.conv2d(xl, wl, padding=1),
                                        30),
@@ -311,6 +321,32 @@ def per_frame(rows, calls):
   ops = sum(rows[c]["bound_by"] == "operations" for c in calls)
   tot["bound_by"] = "operations" if 2 * ops >= len(calls) else "bytes"
   return tot
+
+
+def time_calls_alone(conv_tiles, calls):
+  """Each recorded conv kernel call of one served frame, on its own inputs
+  and its own bias, ReLU and output type: the kernel alone (prepared
+  weights, preallocated outputs; device ms from a CUDA graph) and cuDNN's
+  bare conv at its shape, timed the same way. Raises unless the kernel
+  alone gives the served call's bits. Returns {wrapper name: {"alone_ms",
+  "cudnn_alone_ms": sums over the frame, "calls"}}."""
+  import torch
+  out = {}
+  for name, log in calls.items():
+    alone = cudnn = 0.0
+    for args, kwargs, got in log:
+      run, mine = conv_tiles.kernel_call(name, args, kwargs)
+      run()
+      pairs = zip(mine, got) if isinstance(got, tuple) else [(mine, got)]
+      if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{name} alone differs from the served call at "
+                             f"{tuple(args[0].shape)}")
+      alone += conv_tiles.graph_ms(run, 20)
+      a = conv_tiles.arguments(name, args, kwargs)
+      cudnn += conv_tiles.cudnn_ms(a["x"], a["w"], 20)
+    out[name] = {"alone_ms": alone, "cudnn_alone_ms": cudnn,
+                 "calls": len(log)}
+  return out
 
 
 def main():
@@ -330,6 +366,7 @@ def main():
   from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
   from kfnet_tpu_torch.nn import layers as L
   from kfnet_tpu_torch.pose import ransac
+  from kfnet_tpu_torch.tools import conv_tiles
 
   # 1. environment
   t0 = time.time()
@@ -376,8 +413,12 @@ def main():
     if not (dx <= TOL_X and dP <= TOL_P and mask_equal):
       raise AssertionError(f"kernel disagrees with its plain version on "
                            f"{name}: {errs[name]}")
-  say("kernel_vs_plain", t0, tol={"x_atol": TOL_X, "P_rtol": TOL_P},
-      cases=errs)
+  grad_errs = fused_grads(ff, main_inputs[0], main_inputs[1],
+                          main_inputs[2])
+  say("kernel_vs_plain", t0, tol={"x_atol": TOL_X, "P_rtol": TOL_P,
+                                  "grad_rtol": GRAD_RTOL,
+                                  "grad_atol": GRAD_ATOL},
+      cases=errs, grads_vs_plain=grad_errs)
 
   # 4. the conv kernels against their plain versions
   t0 = time.time()
@@ -389,7 +430,8 @@ def main():
   same_shapes = list(dict.fromkeys(later["conv3x3_same"]))
   chain_shapes = list(dict.fromkeys(later["conv3x3_gn_chain"]))
   gen = torch.Generator(device=dev).manual_seed(0)
-  conv_errs = check_conv_kernels(c3, gen, dev, same_shapes, chain_shapes)
+  conv_errs = check_conv_kernels(c3, conv_tiles.inputs, gen, dev,
+                                 same_shapes, chain_shapes)
   say("conv_kernels_vs_plain", t0,
       tol={"f32_and_s1_of_max": TOL_F32_SUM, "s2_rtol": TOL_S2,
            "bf16_rtol": BF16_STEP}, **conv_errs)
@@ -448,8 +490,12 @@ def main():
   c3.conv3x3_same.launches = 0
   c3.conv3x3_gn_chain.launches = 0
   L.layout_copies = 0
-  outs_c = [reloc_c.process(f) for f in frames]
+  c3.prepared_weights.copies = 0
+  outs_c = [reloc_c.process(f) for f in frames[:2]]
+  weight_copies_first_pair = c3.prepared_weights.copies
+  outs_c += [reloc_c.process(f) for f in frames[2:]]
   torch.cuda.synchronize()
+  weight_copies_later = c3.prepared_weights.copies - weight_copies_first_pair
   conv_launches = {"fused_warp_kalman": ff.fused_warp_kalman.launches,
                    "conv3x3_same": c3.conv3x3_same.launches,
                    "conv3x3_gn_chain": c3.conv3x3_gn_chain.launches}
@@ -491,6 +537,8 @@ def main():
   conv_checks = {
       "launches": conv_launches, "launches_expected": expected,
       "layout_copies": copies,
+      "weight_layout_copies": {"first_two_frames": weight_copies_first_pair,
+                               "later_frames": weight_copies_later},
       "packed_finite": bool(np.isfinite(poses_c).all() and all(
           np.isfinite([i["consistent_frac"], i["num_inliers"],
                        i["inlier_ratio"]]).all() for _, i in outs_c)),
@@ -505,6 +553,10 @@ def main():
   if conv_launches != expected:
     raise AssertionError(f"kernel launches {conv_launches}, expected "
                          f"{expected}")
+  if weight_copies_later:
+    raise AssertionError(f"{weight_copies_later} weight layout copies after "
+                         f"the second frame: the copy is not once per "
+                         f"weight tensor")
   if not conv_checks["packed_finite"]:
     raise AssertionError("non-finite packed output (conv kernels)")
   for what, devs in (("its plain version", dev_vs_plain),
@@ -554,6 +606,8 @@ def main():
                                                    threshold=thr), 200)
   plain_ms = cuda_ms(lambda: ff.fused_warp_kalman_reference(
       *args, radius=r, threshold=thr), 200)
+  kernel_alone_ms = conv_tiles.graph_ms(lambda: ff.fused_warp_kalman(
+      *args, radius=r, threshold=thr), 20)
   more = np.random.default_rng(2).integers(0, 256, (16, 480, 640, 3),
                                            dtype=np.uint8)
   cycle = itertools.cycle(more)
@@ -564,12 +618,21 @@ def main():
     turns[name].append(cuda_ms(lambda: rl.process(next(cycle)), 8))
   process_ms = sum(turns["default"]) / 2
   process_conv_ms = sum(turns["conv_kernels"]) / 2
-  same_rows = time_conv_kernels(c3, gen, dev, same_shapes, chain=False)
-  chain_rows = time_conv_kernels(c3, gen, dev, chain_shapes, chain=True)
+  # every conv kernel call of one served filter-step frame, timed alone
+  frame_calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
+  with recording(c3, frame_calls):
+    reloc_c.process(next(cycle))
+  if {k: len(v) for k, v in frame_calls.items()} != {
+      k: len(later[k]) for k in frame_calls}:
+    raise AssertionError("conv kernel calls in the timed frame: "
+                         f"{ {k: len(v) for k, v in frame_calls.items()} }")
+  alone = time_calls_alone(conv_tiles, frame_calls)
+  same_rows = time_conv_kernels(c3, conv_tiles, gen, dev, same_shapes,
+                                chain=False)
+  chain_rows = time_conv_kernels(c3, conv_tiles, gen, dev, chain_shapes,
+                                 chain=True)
   same_frame = per_frame(same_rows, later["conv3x3_same"])
   chain_frame = per_frame(chain_rows, later["conv3x3_gn_chain"])
-  w512 = conv_inputs(gen, 60, 80, 512, 512, dev)[1]
-  weight_prep_ms = cuda_ms(lambda: c3._kernel_weights(w512), 50)
   x_now, P_now = reloc.state[:2]
   ones = torch.ones_like(P_now, dtype=torch.bool)
   pose_ms = cuda_ms(lambda: ransac.solve_pnp_from_maps(
@@ -583,13 +646,14 @@ def main():
   print(smi, flush=True)
   say("times", t0, gpu=gpu, nvidia_smi=smi, process_ms_per_frame=process_ms,
       process_ms_per_frame_conv_kernels=process_conv_ms, process_turns=turns,
-      fused_kernel_ms=kernel_ms, plain_ms=plain_ms, pose_solve_ms=pose_ms,
+      fused_kernel_ms=kernel_ms, fused_kernel_alone_ms=kernel_alone_ms,
+      plain_ms=plain_ms, pose_solve_ms=pose_ms,
       kernel_bytes=bytes_moved,
       conv3x3_same_per_shape={str(k): v for k, v in same_rows.items()},
       conv3x3_same_per_frame=same_frame,
       conv3x3_gn_chain_per_shape={str(k): v for k, v in chain_rows.items()},
       conv3x3_gn_chain_per_frame=chain_frame,
-      weight_prep_ms_512x512=weight_prep_ms,
+      served_frame_alone=alone,
       total_seconds=round(time.time() - t_all, 1))
 
   bad = [m for m in FORBIDDEN if m in sys.modules]
@@ -604,28 +668,36 @@ def main():
       "ms": kernel_ms, "plain_ms": plain_ms,
       "bound_ms": max(bytes_ms, ops_ms),
       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-      "library_ms": None}, {
-      # conv kernels: times summed over one filter-step frame's calls
+      "library_ms": None,
+      "alone_ms": kernel_alone_ms, "library_alone_ms": None}, {
+      # conv kernels: times summed over one filter-step frame's calls;
+      # ms, plain_ms and library_ms back to back per distinct shape,
+      # alone_ms and library_alone_ms device times of the served calls
       "name": "conv3x3_same", "route": "cuda",
       "source": "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
       "replaces": "kfnet_tpu/kernels/conv3x3.py:31",
       "launches": conv_launches["conv3x3_same"],
       "max_abs_err": max(v for k, v in conv_errs["conv3x3_same"].items()
-                         if "17, 23" not in k),
+                         if any(k.startswith(str(s)) for s in same_shapes)),
       "ms": same_frame["ms"], "plain_ms": same_frame["plain_ms"],
       "bound_ms": same_frame["bound_ms"],
       "bound_by": same_frame["bound_by"],
-      "library_ms": same_frame["cudnn_ms"]}, {
+      "library_ms": same_frame["cudnn_ms"],
+      "alone_ms": alone["conv3x3_same"]["alone_ms"],
+      "library_alone_ms": alone["conv3x3_same"]["cudnn_alone_ms"]}, {
       "name": "conv3x3_gn_chain", "route": "cuda",
       "source": "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
       "replaces": "kfnet_tpu/kernels/conv3x3.py:57",
       "launches": conv_launches["conv3x3_gn_chain"],
-      "max_abs_err": max(v["y"] for v in
-                         conv_errs["conv3x3_gn_chain"].values()),
+      "max_abs_err": max(v["y"] for k, v in
+                         conv_errs["conv3x3_gn_chain"].items()
+                         if k in {str(s) for s in chain_shapes}),
       "ms": chain_frame["ms"], "plain_ms": chain_frame["plain_ms"],
       "bound_ms": chain_frame["bound_ms"],
       "bound_by": chain_frame["bound_by"],
-      "library_ms": None}]}), flush=True)
+      "library_ms": None,
+      "alone_ms": alone["conv3x3_gn_chain"]["alone_ms"],
+      "library_alone_ms": None}]}), flush=True)
   torch.cuda.synchronize()
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}),

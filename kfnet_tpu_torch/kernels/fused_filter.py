@@ -9,7 +9,10 @@ clips the flow before the call, so both agree there).
 
 ``fused_warp_kalman`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. Its ``launches`` attribute counts the
-kernel launches.
+kernel launches. It is differentiable on both: on the card, when autograd
+records the call, the launch runs inside ``FusedWarpKalman``, whose
+backward is autograd through the plain version, as the JAX package's
+custom VJP (``_fused_bwd``) is the VJP of its XLA composition.
 """
 
 from __future__ import annotations
@@ -82,6 +85,56 @@ def _check(name, t, shape, device):
     raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(x_prev, P_prev, flow, W, z, V, radius, threshold, invalid_cov):
+  """The CUDA kernel on checked (h, w, C) float32 CUDA maps."""
+  h, w = x_prev.shape[:2]
+  dev = x_prev.device
+  lib = _lib()
+  x_post = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+  P_post = torch.empty((h, w, 1), dtype=torch.float32, device=dev)
+  cons = torch.empty((h, w, 1), dtype=torch.bool, device=dev)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  err = lib.kfnet_fused_warp_kalman(
+      x_prev.data_ptr(), P_prev.data_ptr(), flow.data_ptr(), W.data_ptr(),
+      z.data_ptr(), V.data_ptr(), x_post.data_ptr(), P_post.data_ptr(),
+      cons.data_ptr(), h, w, float(radius), float(threshold),
+      float(invalid_cov), dev.index, stream)
+  if err != 0:
+    msg = lib.kfnet_cuda_error_string(err).decode()
+    raise RuntimeError(f"fused_warp_kalman launch failed: {msg} ({err})")
+  fused_warp_kalman.launches += 1
+  return x_post, P_post, cons
+
+
+class FusedWarpKalman(torch.autograd.Function):
+  """The kernel's launch for the outputs; autograd through
+  ``fused_warp_kalman_reference``, recomputed from the saved inputs, for
+  the gradients of (x_post, P_post). The mask has none.
+
+      FusedWarpKalman.apply(x_prev, P_prev, flow, W, z, V, radius,
+                            threshold, invalid_cov)
+  """
+
+  @staticmethod
+  def forward(ctx, x_prev, P_prev, flow, W, z, V, radius, threshold,
+              invalid_cov):
+    out = _launch(x_prev, P_prev, flow, W, z, V, radius, threshold,
+                  invalid_cov)
+    ctx.save_for_backward(x_prev, P_prev, flow, W, z, V)
+    ctx.args = (radius, threshold, invalid_cov)
+    ctx.mark_non_differentiable(out[2])
+    return out
+
+  @staticmethod
+  def backward(ctx, g_x, g_P, _g_mask):
+    inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+    with torch.enable_grad():
+      x_post, P_post, _ = fused_warp_kalman_reference(*inputs, *ctx.args)
+    grads = torch.autograd.grad((x_post, P_post), inputs, (g_x, g_P),
+                                allow_unused=True)
+    return (*grads, None, None, None)
+
+
 def fused_warp_kalman(x_prev, P_prev, flow, W, z, V, radius: int,
                       threshold: float = kalman.CHI2_3DOF_P05,
                       invalid_cov: float = 1e8):
@@ -106,25 +159,13 @@ def fused_warp_kalman(x_prev, P_prev, flow, W, z, V, radius: int,
     raise ValueError(f"x_prev must be (h, w, 3), got {tuple(x_prev.shape)}")
   h, w = x_prev.shape[:2]
   dev = x_prev.device
-  for name, t, c in (("x_prev", x_prev, 3), ("P_prev", P_prev, 1),
-                     ("flow", flow, 2), ("W", W, 1), ("z", z, 3),
-                     ("V", V, 1)):
+  inputs = (x_prev, P_prev, flow, W, z, V)
+  for name, t, c in zip(("x_prev", "P_prev", "flow", "W", "z", "V"), inputs,
+                        (3, 1, 2, 1, 3, 1)):
     _check(name, t, (h, w, c), dev)
-  lib = _lib()
-  x_post = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-  P_post = torch.empty((h, w, 1), dtype=torch.float32, device=dev)
-  cons = torch.empty((h, w, 1), dtype=torch.bool, device=dev)
-  stream = torch.cuda.current_stream(dev).cuda_stream
-  err = lib.kfnet_fused_warp_kalman(
-      x_prev.data_ptr(), P_prev.data_ptr(), flow.data_ptr(), W.data_ptr(),
-      z.data_ptr(), V.data_ptr(), x_post.data_ptr(), P_post.data_ptr(),
-      cons.data_ptr(), h, w, float(radius), float(threshold),
-      float(invalid_cov), dev.index, stream)
-  if err != 0:
-    msg = lib.kfnet_cuda_error_string(err).decode()
-    raise RuntimeError(f"fused_warp_kalman launch failed: {msg} ({err})")
-  fused_warp_kalman.launches += 1
-  return x_post, P_post, cons
+  if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    return FusedWarpKalman.apply(*inputs, radius, threshold, invalid_cov)
+  return _launch(*inputs, radius, threshold, invalid_cov)
 
 
 fused_warp_kalman.launches = 0

@@ -35,7 +35,8 @@ from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
 from kfnet_tpu_torch.pose import ransac
 
 # the port's own kernels, by a part of their names in the trace
-OWN_KERNELS = ("fused_warp_kalman", "conv3x3_kernel", "moments_kernel")
+OWN_KERNELS = ("fused_warp_kalman", "conv3x3_wgmma", "moments_kernel",
+               "split_sum_kernel")
 
 
 def trace_kernels(fn, n):

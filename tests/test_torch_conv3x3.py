@@ -502,3 +502,218 @@ def test_slice_two_filter_steps_match_jax():
   np.testing.assert_allclose(f32(Pt), f32(P), rtol=1.5e-2)
   assert np.array_equal(aux_t["consistent"].numpy(),
                         np.asarray(aux_j["consistent"]))
+
+
+# ------------------------------------------------ no backward, launch plan
+
+
+def _small_conv(cin=128, cout=128, h=4, w=5, seed=0):
+  gen = torch.Generator().manual_seed(seed)
+  x = torch.randn((h, w, cin), generator=gen).to(torch.bfloat16)
+  wt = torch.randn((cout, cin, 3, 3), generator=gen) * 0.05
+  return x, wt, torch.ones(cin), torch.zeros(cin)
+
+
+@pytest.mark.parametrize("which", ["x", "w", "scale"])
+def test_conv_wrappers_refuse_grad(which):
+  # the Pallas kernels have no VJP; the wrappers refuse what autograd would
+  # record, on any device, so the CPU's plain version behaves as the kernel
+  x, wt, scale, shift = _small_conv()
+  t = {"x": x, "w": wt, "scale": scale}[which]
+  t.requires_grad_(True)
+  if which != "scale":
+    with pytest.raises(RuntimeError, match="no backward"):
+      tc3.conv3x3_same(x, wt)
+  with pytest.raises(RuntimeError, match="no backward"):
+    tc3.conv3x3_gn_chain(x, scale, shift, wt)
+  with torch.no_grad():  # serving: the same tensors under no_grad run
+    y = tc3.conv3x3_same(x, wt)
+    y2, s1, _ = tc3.conv3x3_gn_chain(x, scale, shift, wt)
+  assert y.shape == y2.shape == (4, 5, 128) and s1.shape == (128,)
+  t.requires_grad_(False)  # plain tensors run with grad mode on
+  torch.testing.assert_close(tc3.conv3x3_same(x, wt), y, rtol=0, atol=0)
+  torch.testing.assert_close(tc3.conv3x3_gn_chain(x, scale, shift, wt)[0],
+                             y2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h,w,cin,cout,chain,want", [
+    # the conv-kernel configuration's shapes at 640x480 (kernel_shapes)
+    (60, 80, 128, 256, True, (2, 1, 40)),
+    (60, 80, 256, 256, True, (2, 1, 40)),
+    (60, 80, 256, 512, True, (1, 1, 80)),
+    (60, 80, 512, 512, True, (1, 1, 80)),
+    (60, 80, 128, 128, False, (1, 1, 80)),
+    (60, 80, 256, 128, False, (1, 1, 80)),
+    (30, 40, 128, 128, False, (1, 1, 20)),
+    (30, 40, 256, 128, False, (1, 4, 20)),
+    (15, 20, 256, 256, False, (1, 4, 6)),
+    (17, 23, 256, 128, False, (1, 4, 9)),
+    (17, 23, 256, 128, True, (1, 1, 9)),
+])
+def test_plan_at_main_path_shapes(h, w, cin, cout, chain, want):
+  p = tc3.plan(h, w, cin, cout, chain=chain)
+  assert tuple(p) == want
+  chunks = cin // tc3.CIN_STEP
+  n_tiles = cout // tc3.COUT_TILE
+  one_wg = tc3.plan(h, w, cin, cout, chain=chain, wgs=1, splits=1)
+  two_wg = tc3.plan(h, w, cin, cout, chain=chain, wgs=2, splits=1)
+  # two warpgroups only where one gives more than a wave and two do not
+  assert (p.wgs == 2) == (one_wg.tiles * n_tiles > tc3.FILL_BLOCKS
+                          >= two_wg.tiles * n_tiles)
+  # single-chunk splits where there are four or more chunks and the split
+  # units still fit one pass of the card; else none
+  split = (not chain and chunks >= 4
+           and p.tiles * n_tiles * chunks <= tc3.FILL_BLOCKS)
+  assert p.splits == (chunks if split else 1)
+
+
+def test_conv_tiles_main_path_shapes():
+  # the tool and the card tests time and check the shapes kernel_shapes
+  # gives for one filter step of the conv-kernel configuration
+  from kfnet_tpu_torch.tools import conv_tiles
+  same, chain = conv_tiles.main_path_shapes()
+  assert same == [(60, 80, 128, 128), (30, 40, 128, 128), (15, 20, 256, 256),
+                  (30, 40, 256, 128), (60, 80, 256, 128)]
+  assert chain == [(60, 80, 128, 256), (60, 80, 256, 256), (60, 80, 256, 512),
+                   (60, 80, 512, 512)]
+  for shape in same:
+    plans = conv_tiles.candidates(*shape, chain=False)
+    assert tc3.plan(*shape) in plans
+    assert {p.wgs for p in plans} == {1, 2}
+    assert {p.splits for p in plans} == {
+        s for s in range(1, shape[2] // 64 + 1) if (shape[2] // 64) % s == 0}
+  for shape in chain:
+    assert [p.splits for p in conv_tiles.candidates(*shape, chain=True)] == [
+        1, 1]
+  # the bound: 2·h·w·9·cin·cout operations at 989 TFLOP/s, or the bytes
+  ms, by = conv_tiles.bound_ms(60, 80, 512, 512, chain=True)
+  assert by == "operations"
+  assert ms == pytest.approx(2 * 4800 * 9 * 512 * 512 / 989e12 * 1e3)
+  ms, by = conv_tiles.bound_ms(15, 20, 256, 256)
+  assert by == "bytes"
+  assert ms == pytest.approx((300 * 256 * 2 * 2 + 9 * 256 * 256 * 2)
+                             / 3.35e12 * 1e3)
+
+
+def test_plan_overrides_and_refusals():
+  assert tc3.plan(60, 80, 512, 512, chain=True, wgs=2) == (2, 1, 40)
+  assert tc3.plan(15, 20, 256, 256, wgs=2, splits=2) == (2, 2, 3)
+  assert tc3.plan(60, 80, 128, 128, splits=2).splits == 2
+  with pytest.raises(ValueError, match="divide"):
+    tc3.plan(60, 80, 256, 128, splits=3)
+  with pytest.raises(ValueError, match="chain"):
+    tc3.plan(60, 80, 256, 128, chain=True, splits=2)
+  with pytest.raises(ValueError, match="warpgroups"):
+    tc3.plan(60, 80, 256, 128, wgs=3)
+  # the fill rules follow the card's SM count where the caller gives it
+  assert tc3.plan(60, 80, 128, 256, chain=True).wgs == 2
+  assert tc3.plan(60, 80, 128, 256, chain=True, sms=200).wgs == 1
+  assert tc3.plan(15, 20, 256, 256).splits == 4
+  assert tc3.plan(15, 20, 256, 256, sms=40).splits == 1
+  # 8 x 8-pixel tiles per warpgroup, counted over the map's rectangle
+  for h, w in ((1, 1), (8, 8), (9, 17), (60, 80)):
+    for wgs in (1, 2):
+      p = tc3.plan(h, w, 128, 128, chain=True, wgs=wgs)
+      assert p.tiles == -(-h // (tc3.WG_ROWS * wgs)) * -(-w // tc3.TILE_W)
+
+
+# ------------------------------------------------- prepared weight layout
+
+
+def test_prepared_weights_layout_and_reuse():
+  _, wt, _, _ = _small_conv(cin=64, cout=128)
+  wk = tc3.prepared_weights(wt)
+  assert wk.dtype == torch.bfloat16 and wk.shape == (128, 9 * 64)
+  assert wk.is_contiguous()
+  # K = (3*dy + dx)*cin + c
+  want = wt.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(128, 9 * 64)
+  assert torch.equal(wk, want)
+  assert tc3.prepared_weights(wt) is wk  # one copy per weight tensor
+
+
+@pytest.mark.parametrize("update", ["copy_", "mul_", "setitem", "no_grad"])
+def test_prepared_weights_follow_in_place_updates(update):
+  _, wt, _, _ = _small_conv(cin=64, cout=128, seed=1)
+  old = tc3.prepared_weights(wt)
+  if update == "copy_":
+    wt.copy_(torch.randn(wt.shape))
+  elif update == "mul_":
+    wt.mul_(-2.0)
+  elif update == "setitem":
+    wt[3, 5, 1, 2] = 7.0
+  else:
+    with torch.no_grad():
+      wt.add_(1.0)
+  new = tc3.prepared_weights(wt)
+  assert new is not old
+  want = wt.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(128, 9 * 64)
+  assert torch.equal(new, want)
+
+
+def test_prepared_weights_die_with_their_tensor():
+  import gc
+  _, wt, _, _ = _small_conv(cin=64, cout=128, seed=2)
+  tc3.prepared_weights(wt)
+  key = id(wt)
+  assert key in tc3._prepared
+  del wt
+  gc.collect()
+  assert key not in tc3._prepared
+  # a new tensor never meets another's copy, even at a reused id
+  for seed in range(3):
+    _, w2, _, _ = _small_conv(cin=64, cout=128, seed=seed)
+    want = w2.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(128, 9 * 64)
+    assert torch.equal(tc3.prepared_weights(w2), want)
+    del w2
+
+
+def test_weights_updated_in_place_reach_layer_and_model_outputs():
+  # the layer and the relocaliser read the weights they hold now: an
+  # in-place update, or new params, changes what comes out
+  from kfnet_tpu_torch.eval.online import OnlineRelocalizer
+  layer = tL.conv(128, 3, 1, impl="pallas_3x3")
+  params, _ = layer.init(torch.Generator().manual_seed(0), (6, 7, 128),
+                         "cpu")
+  x = torch.randn((1, 128, 6, 7)).contiguous(
+      memory_format=torch.channels_last)
+  y0 = layer.apply(params, x)
+  with torch.no_grad():
+    params["w"].mul_(0.5)
+  y1 = layer.apply(params, x)
+  assert not torch.equal(y0, y1)
+  torch.testing.assert_close(
+      y1, tL.conv(128, 3, 1, impl="pallas_3x3").apply(
+          {k: v.clone() for k, v in params.items()}, x), rtol=0, atol=0)
+  assert torch.equal(tc3.prepared_weights(params["w"]),
+                     params["w"].to(torch.bfloat16).permute(0, 2, 3, 1)
+                     .reshape(128, 9 * 128))
+
+  cfg = tkfnet.KFNetConfig(
+      scoordnet=tscoord.SCoordNetConfig(
+          channels=(8, 16, 128, 128), strides=(2, 2, 2, 1),
+          head_channels=128, stem_s2d=1, conv_impl="pallas_fused"),
+      oflownet=toflow.OFlowNetConfig(
+          encoder_channels=(8, 16, 128, 128), encoder_strides=(2, 2, 2, 1),
+          search_radius=2, stem_s2d=1, conv_impl="pallas_3x3"))
+  img = (48, 64, 3)
+  frames = np.random.default_rng(0).integers(0, 256, (2,) + img,
+                                             dtype=np.uint8)
+  K = np.asarray([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]], np.float32)
+
+  def run(p):
+    reloc = OnlineRelocalizer(p, cfg, K, solve_pose=False, device="cpu")
+    for f in frames:
+      reloc.process(f)
+    return [t.clone() for t in reloc.state[:2]]
+
+  params = tkfnet.init(0, cfg, img, device="cpu")
+  before = run(params)
+  # the head block's conv: the last conv3x3_gn_chain call of the trunk
+  trunk_w = params["scoordnet"][len(cfg.scoordnet.channels)][0]["w"]
+  with torch.no_grad():
+    trunk_w.mul_(1.5)
+  after = run(params)
+  assert not torch.equal(before[0], after[0])
+  fresh = run(tL.tree_map(lambda t: t.clone(), params))  # new params
+  for a, b in zip(after, fresh):
+    assert torch.equal(a, b)

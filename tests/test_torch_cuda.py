@@ -13,7 +13,11 @@ card at the tolerances of tests/test_pallas_fused.py: atol 2e-5 on x, rtol
 theirs at chip_smoke.py's: float32 outputs and Σy within 3e-5 of the
 largest |value|, Σy² within rtol 5e-5, bf16 outputs within one bf16
 rounding step (the kernels sum the same exact bf16 products in another
-order); conv3x3_gn_chain gives the same bits twice. The small float32
+order), at every distinct shape of the conv-kernel path, under every launch
+plan; conv3x3_gn_chain, and conv3x3_same where it splits K, give the same
+bits twice. Gradients through the fused kernel's autograd node on the card
+are held against autograd through the plain version on the CPU at the
+golden tolerance (rtol 5e-4, atol 5e-5). The small float32
 conv-kernel configuration on the card is held against the same on the CPU
 at tests/test_torch_conv3x3.py's tolerances for that config.
 """
@@ -28,6 +32,7 @@ from kfnet_tpu_torch.kernels import conv3x3 as tc3
 from kfnet_tpu_torch.kernels import fused_filter as tff
 from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
 from kfnet_tpu_torch.nn import layers as L
+from kfnet_tpu_torch.tools import conv_tiles
 
 pytestmark = pytest.mark.cuda
 
@@ -128,9 +133,21 @@ def assert_held(got, want, rtol, atol_of_max):
                              atol=atol_of_max * np.abs(w).max())
 
 
-@pytest.mark.parametrize("h,w,cin,cout", [(60, 80, 128, 128),
-                                          (15, 20, 256, 256),
-                                          (17, 23, 256, 128)])
+# every distinct shape of the conv-kernel configuration's filter step at
+# 640x480 (kfnet.kernel_shapes; held on the CPU by
+# tests/test_torch_conv3x3.py::test_conv_tiles_main_path_shapes), the odd
+# 17x23 map, and a 13x21 map, whose rows and columns are not multiples of
+# the 8 x 8 pixel tile, at cout 128 and 512
+SAME_SHAPES = [(60, 80, 128, 128), (30, 40, 128, 128), (15, 20, 256, 256),
+               (30, 40, 256, 128), (60, 80, 256, 128), (17, 23, 256, 128),
+               (13, 21, 128, 128), (13, 21, 128, 512)]
+CHAIN_SHAPES = [(60, 80, 128, 256, False), (60, 80, 256, 256, True),
+                (60, 80, 256, 512, True), (60, 80, 512, 512, True),
+                (17, 23, 256, 128, True), (13, 21, 128, 128, True),
+                (13, 21, 256, 512, True)]
+
+
+@pytest.mark.parametrize("h,w,cin,cout", SAME_SHAPES)
 def test_conv3x3_same_kernel_matches_plain(cuda, h, w, cin, cout):
   x, wt, b, _, _ = conv_inputs(cuda, h, w, cin, cout)
   before = tc3.conv3x3_same.launches
@@ -144,9 +161,7 @@ def test_conv3x3_same_kernel_matches_plain(cuda, h, w, cin, cout):
   assert tc3.conv3x3_same.launches == before + 2
 
 
-@pytest.mark.parametrize("h,w,cin,cout,relu", [(60, 80, 128, 256, False),
-                                               (60, 80, 512, 512, True),
-                                               (17, 23, 256, 128, True)])
+@pytest.mark.parametrize("h,w,cin,cout,relu", CHAIN_SHAPES)
 def test_gn_chain_kernel_matches_plain(cuda, h, w, cin, cout, relu):
   x, wt, _, scale, shift = conv_inputs(cuda, h, w, cin, cout)
   before = tc3.conv3x3_gn_chain.launches
@@ -159,6 +174,115 @@ def test_gn_chain_kernel_matches_plain(cuda, h, w, cin, cout, relu):
   assert_held(got[0], want[0], 2.0 ** -7, 3e-5)
   assert_held(got[1], want[1], 0.0, 3e-5)
   assert_held(got[2], want[2], 5e-5, 0.0)
+
+
+def run_plan(x, wt, b, scale, shift, pl_, chain):
+  """One conv kernel call under launch plan ``pl_`` (float32 output for
+  conv3x3_same, with bias and ReLU), launched alone as the timing tool
+  launches it."""
+  if chain:
+    run, out = conv_tiles.kernel_call(
+        "conv3x3_gn_chain", (x, scale, shift, wt, True), pl_=pl_)
+  else:
+    run, out = conv_tiles.kernel_call(
+        "conv3x3_same", (x, wt, b, True, torch.float32), pl_=pl_)
+  run()
+  return out
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(15, 20, 256, 256),
+                                          (13, 21, 128, 512),
+                                          (60, 80, 256, 128)])
+def test_conv3x3_same_every_plan_matches_plain(cuda, h, w, cin, cout):
+  # one or two consumer warpgroups, every split of K (the split-K path
+  # sums its float32 partials in split order: the same bits twice)
+  x, wt, b, _, _ = conv_inputs(cuda, h, w, cin, cout, seed=1)
+  want = tc3.conv3x3_same_reference(x, wt, b, True, torch.float32)
+  chunks = cin // tc3.CIN_STEP
+  for wgs in (1, 2):
+    for splits in [s for s in range(1, chunks + 1) if chunks % s == 0]:
+      pl_ = tc3.plan(h, w, cin, cout, wgs=wgs, splits=splits)
+      got = run_plan(x, wt, b, None, None, pl_, False)
+      again = run_plan(x, wt, b, None, None, pl_, False)
+      torch.cuda.synchronize()
+      assert torch.equal(got, again), (wgs, splits)
+      assert_held(got, want, 0.0, 3e-5)
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(13, 21, 128, 128),
+                                          (60, 80, 256, 512)])
+def test_gn_chain_both_plans_match_plain(cuda, h, w, cin, cout):
+  x, wt, _, scale, shift = conv_inputs(cuda, h, w, cin, cout, seed=2)
+  want = tc3.conv3x3_gn_chain_reference(x, scale, shift, wt, True)
+  for wgs in (1, 2):
+    pl_ = tc3.plan(h, w, cin, cout, chain=True, wgs=wgs)
+    got = run_plan(x, wt, None, scale, shift, pl_, True)
+    torch.cuda.synchronize()
+    assert_held(got[0], want[0], 2.0 ** -7, 3e-5)
+    assert_held(got[1], want[1], 0.0, 3e-5)
+    assert_held(got[2], want[2], 5e-5, 0.0)
+
+
+def test_conv_kernels_refuse_grad_on_card(cuda):
+  x, wt, _, scale, shift = conv_inputs(cuda, 12, 16, 128, 128)
+  wt.requires_grad_(True)
+  with pytest.raises(RuntimeError, match="no backward"):
+    tc3.conv3x3_same(x, wt)
+  with pytest.raises(RuntimeError, match="no backward"):
+    tc3.conv3x3_gn_chain(x, scale, shift, wt)
+  with torch.no_grad():
+    tc3.conv3x3_same(x, wt)
+    tc3.conv3x3_gn_chain(x, scale, shift, wt)
+  torch.cuda.synchronize()
+
+
+def test_prepared_weights_follow_updates_on_card(cuda):
+  # an in-place update to a layer's weights reaches the kernel: the
+  # prepared bf16 copy is made again, never reused stale
+  layer = L.conv(128, 3, 1, impl="pallas_3x3")
+  params, _ = layer.init(torch.Generator(device=cuda).manual_seed(0),
+                         (20, 24, 128), cuda)
+  x = torch.randn((1, 128, 20, 24), device=cuda).contiguous(
+      memory_format=torch.channels_last)
+  before = tc3.conv3x3_same.launches
+  y0 = layer.apply(params, x)
+  params["w"].mul_(-0.5)
+  y1 = layer.apply(params, x)
+  params["w"][0].zero_()
+  y2 = layer.apply(params, x)
+  torch.cuda.synchronize()
+  assert tc3.conv3x3_same.launches == before + 3
+  assert not torch.equal(y0, y1)
+  fresh = {k: v.clone() for k, v in params.items()}
+  assert torch.equal(y2, layer.apply(fresh, x))
+  # output channel 0 now sees only its bias
+  assert torch.equal(y2[0, 0], params["b"][0].to(y2.dtype).expand(20, 24))
+
+
+def test_fused_kernel_grads_on_card_match_cpu(cuda):
+  """A loss on the fused update's outputs on the card: every one of its six
+  inputs gets the gradient that autograd gives through the plain version
+  on the CPU (golden tolerance rtol 5e-4, atol 5e-5); the forward is the
+  kernel's launch."""
+  h, w, r, thr = 17, 23, 3, 7.814728
+  args = make_inputs(12, h, w, r, False)
+  rng = np.random.default_rng(3)
+  gx = torch.from_numpy(rng.normal(size=(h, w, 3)).astype(np.float32))
+  gP = torch.from_numpy(rng.normal(size=(h, w, 1)).astype(np.float32))
+  grads = {}
+  for dev in (cuda, torch.device("cpu")):
+    ts = [a.to(dev).requires_grad_(True) for a in args]
+    before = tff.fused_warp_kalman.launches
+    x, P, cons = tff.fused_warp_kalman(*ts, radius=r, threshold=thr)
+    assert tff.fused_warp_kalman.launches == before + (dev.type == "cuda")
+    assert x.requires_grad and P.requires_grad and not cons.requires_grad
+    loss = torch.sum(x * gx.to(dev)) + torch.sum(P * gP.to(dev))
+    grads[dev.type] = [g.cpu().numpy() for g in torch.autograd.grad(loss,
+                                                                    ts)]
+  for name, g, want in zip(("x_prev", "P_prev", "flow", "W", "z", "V"),
+                           grads["cuda"], grads["cpu"]):
+    assert np.abs(want).max() > 0, name
+    np.testing.assert_allclose(g, want, rtol=5e-4, atol=5e-5, err_msg=name)
 
 
 def test_conv_kernels_reject_bad_inputs(cuda):

@@ -139,3 +139,103 @@ def test_other_devices_raise():
   args = [a.to("meta") for a in _t(make_inputs(seed=8))]
   with pytest.raises(ValueError):
     tff.fused_warp_kalman(*args, radius=3)
+
+
+# ---------------------------------------------------------------- gradients
+# FusedWarpKalman is the autograd node the wrapper records on the card. Here
+# the launch (``_launch``) is patched to the plain version, which has its
+# signature, so the CPU drives the node's backward. Gradients are
+# held at the golden tolerance (rtol 5e-4, atol 5e-5) against torch autograd
+# through fused_warp_kalman_reference and against jax.grad through the
+# Pallas kernel in interpret mode (its custom VJP). Flows stay within the
+# radius, where clipping is the identity and the JAX VJP (on the raw flow)
+# and the port's (on the clipped one) agree; the χ² gate is kept away from
+# ties (checked).
+
+GRAD_CASES = [
+    # seed, oob, h, w, radius, threshold
+    (10, False, 12, 16, 3, jkalman.CHI2_3DOF_P05),
+    (11, True, 12, 16, 3, jkalman.CHI2_3DOF_P05),
+    (12, True, 17, 23, 3, jkalman.CHI2_3DOF_P50),
+]
+
+
+def _gate_margin(args, r, thr):
+  """Smallest |χ² - threshold| / threshold over the valid pixels."""
+  x, P, flow, W, z, V = _t(args)
+  x_pr, P_pr, valid = twarp.warp_state_cov(x, P, torch.clamp(flow, -r, r), W)
+  chi2 = torch.sum(torch.square(z - x_pr), -1, keepdim=True) / (P_pr + V)
+  return float(((chi2 - thr).abs() / thr)[valid].min())
+
+
+def _loss_cotangents(seed, h, w):
+  rng = np.random.default_rng(seed + 100)
+  return (rng.normal(size=(h, w, 3)).astype(np.float32),
+          rng.normal(size=(h, w, 1)).astype(np.float32))
+
+
+def _torch_grads(fn, args, gx, gP):
+  ts = [t.requires_grad_(True) for t in _t(args)]
+  x, P, _ = fn(*ts)
+  loss = torch.sum(x * torch.from_numpy(gx)) + torch.sum(
+      P * torch.from_numpy(gP))
+  return [g.numpy() for g in torch.autograd.grad(loss, ts)]
+
+
+@pytest.mark.parametrize("seed,oob,h,w,r,thr", GRAD_CASES)
+def test_autograd_function_grads_match_reference_and_jax(monkeypatch, seed,
+                                                         oob, h, w, r, thr):
+  import jax
+  args = make_inputs(seed=seed, oob=oob, h=h, w=w, r=r)
+  assert np.abs(args[2]).max() < r  # clipping is the identity
+  assert _gate_margin(args, r, thr) > 1e-3
+  gx, gP = _loss_cotangents(seed, h, w)
+
+  monkeypatch.setattr(tff, "_launch", tff.fused_warp_kalman_reference)
+  got = _torch_grads(
+      lambda *t: tff.FusedWarpKalman.apply(*t, r, thr, 1e8), args, gx, gP)
+  plain = _torch_grads(
+      lambda *t: tff.fused_warp_kalman_reference(*t, radius=r, threshold=thr),
+      args, gx, gP)
+
+  def jloss(*a):
+    x, P, _ = jff.fused_warp_kalman(*a, radius=r, threshold=thr,
+                                    interpret=True)
+    return jnp.sum(x * gx) + jnp.sum(P * gP)
+
+  want = jax.grad(jloss, argnums=tuple(range(6)))(
+      *(jnp.asarray(a) for a in args))
+  names = ("x_prev", "P_prev", "flow", "W", "z", "V")
+  for name, g, p, j in zip(names, got, plain, want):
+    assert np.abs(g).max() > 0, name  # every input gets a gradient
+    np.testing.assert_allclose(g, p, rtol=5e-4, atol=5e-5, err_msg=name)
+    np.testing.assert_allclose(g, np.asarray(j), rtol=5e-4, atol=5e-5,
+                               err_msg=name)
+
+
+def test_autograd_function_mask_has_no_grad_and_forward_is_the_hook(
+    monkeypatch):
+  args = _t(make_inputs(seed=13))
+  calls = []
+
+  def hook(*a):  # stands in for the launch
+    calls.append(len(a))
+    return tff.fused_warp_kalman_reference(*a)
+
+  monkeypatch.setattr(tff, "_launch", hook)
+  ts = [t.requires_grad_(True) for t in args]
+  x, P, cons = tff.FusedWarpKalman.apply(*ts, 3, 7.814728, 1e8)
+  assert calls == [9]  # six maps, radius, threshold, invalid_cov
+  assert x.requires_grad and P.requires_grad and not cons.requires_grad
+  assert cons.dtype == torch.bool
+  # only x_post feeds the loss: P_post's cotangent is taken as zero
+  (g_P,) = torch.autograd.grad(x.sum(), [ts[1]])
+  assert torch.isfinite(g_P).all()
+
+
+def test_cpu_path_stays_differentiable():
+  # a CPU tensor takes the plain version, which autograd records itself
+  ts = [t.requires_grad_(True) for t in _t(make_inputs(seed=14))]
+  x, P, _ = tff.fused_warp_kalman(*ts, radius=3)
+  grads = torch.autograd.grad(x.sum() + P.sum(), ts)
+  assert all(torch.isfinite(g).all() for g in grads)
