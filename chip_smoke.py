@@ -17,6 +17,17 @@ Phases, one line each, with their seconds:
      six inputs through its autograd node (forward: the kernel; backward:
      autograd through the plain version) against autograd through the
      plain version, at the golden tolerance (rtol 5e-4, atol 5e-5);
+  3b. the fused update's heads-in entry (fused_filter_step: the two
+     heads' raw outputs in, their output steps, the flow clip, the warp and
+     the update in one launch) against its plain version on the card at
+     60x80, one map and a batch of four, on heads drawn
+     from a seeded generator with raw flows deep in tanh's saturation (the
+     flow at ±r) and log-variances past ±12: flow, W, z and V within
+     ULP_TOL units in the last place (both sides use libdevice's tanhf and
+     expf, each within 2 ulps of the truth), x and P at phase 3's
+     tolerances, the mask equal away from χ² ties; then its gradients into
+     both raw heads, x_prev and P_prev through its autograd node against
+     autograd through the plain version, at the golden tolerance;
   4. the conv kernels against their plain versions on the card at every
      distinct shape of the conv-kernel configuration's path (below), plus
      an odd 17x23 map and a 13x21 map (neither a multiple of the 8 x 8
@@ -31,11 +42,16 @@ Phases, one line each, with their seconds:
   5. the slice at full width: the default KFNetConfig (GN SCoordNet
      64..512 with a 512 head, OFlowNet encoder 32..128, r=4, U-Net
      128/128/256, s2d 2, bf16) with weights drawn from seed 0, serving
-     eight 640x480 uint8 frames through OnlineRelocalizer. The kernel must
-     launch once per frame after the first, the packed outputs must be
-     finite, and the same frames through use_fused_kernel=False must give
-     the same x and P (rtol 1e-3, atol 1e-3: the two paths share every bf16
-     op, so any difference is the kernel's);
+     eight 640x480 uint8 frames through OnlineRelocalizer, whose filter
+     step is one CUDA graph replayed a frame. The kernel must launch once
+     per frame after the first (launches counted under replay), the packed
+     outputs must be finite, the same frames through use_fused_kernel=False
+     must give the same x and P (rtol 1e-3, atol 1e-3: the two paths share
+     every bf16 op, so any difference is the kernel's), and through the
+     eager filter step (graph=False) the same x, P and packed outputs
+     (bit-equal is recorded; held at rtol = atol = 1e-3); no host sync
+     inside a replayed frame, nor in the two frames after a reset, which
+     keep the graph and replay it from the new carry;
   6. the same weights and frames in the conv-kernel configuration
      (SCoordNet conv_impl="pallas_fused", OFlowNet "pallas_3x3"): every
      kernel's launches equal the count kfnet.kernel_shapes gives for the
@@ -47,10 +63,22 @@ Phases, one line each, with their seconds:
      call of one frame's (z, V) and one pair's (flow, W) within phase 4's
      tolerances of its plain version on its own inputs; those outputs
      within BOUNDS of the same path with each kernel's plain version in
-     its place, and of the default config's;
+     its place, and of the default config's; the graphed relocaliser
+     against the eager filter step, as in phase 5;
   7. pose on known data: 4800 correspondences, 30% outliers, solved on the
      card to within 1 cm and 0.1°;
-  8. times with CUDA events: process() per frame in both configurations;
+  8. times with CUDA events: process() per frame in both configurations,
+     graphed and eager, and the filter step alone (solve_pose=False): its
+     host ms a frame (the enqueue) and its ms a frame, graphed and eager,
+     in turns default, conv, conv, default; what a capture costs: in each
+     configuration the host ms of process() on the frame that captures,
+     on the next (a replay), on the two frames after a reset and on the
+     frame after an in-place weight update (which captures again); the
+     fused update's heads-in entry alone (its wrapper in a CUDA graph) at
+     one map and a batch of four, and through its wrapper back to back; the
+     kernel launches it removes from a frame (torch.profiler: the output
+     steps, W * w_scale, the flow clip and the TPU kernel's entry against
+     the one entry);
      each kernel through its wrapper called back to back, beside its
      plain version and (conv3x3_same) cuDNN's conv at the same shape,
      also back to back (the kernels line's ms, plain_ms, library_ms; the
@@ -88,6 +116,11 @@ from kfnet_tpu_torch.tools.conv_tiles import (  # noqa: E402
 
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TOL_X, TOL_P = 2e-5, 2e-5   # the kernel against its plain version
+ULP_TOL = 4                 # heads-in entry's flow, W, z, V: two libdevice
+                            # results of at most 2 ulps error each
+# the heads-in entry's constants; the clamps are the nets' LOG_VAR_CLIP
+STEP_KW = dict(w_scale=16.0, coord_scale=1.5, coord_offset=(0.5, -1.0, 2.0),
+               log_w_clip=(-12.0, 12.0), log_v_clip=(-12.0, 12.0))
 TOL_PATH = 1e-3             # fused vs unfused slice, x and P (rtol, atol)
 GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5  # fused kernel's gradients: golden tols
 # conv-kernel config against the default one, and against the same path
@@ -164,6 +197,131 @@ def fused_grads(ff, args, r, thr):
   return out
 
 
+def raw_heads(rng, h, w, batch=None):
+  """OFlowNet's and SCoordNet's raw heads and a previous (x, P), float32
+  numpy: flows and variances near the previous state, every 11th raw flow
+  at +30 and every 13th at -30 (tanh saturates: the flow is ±r), every 7th
+  raw log W at +20 and every 7th at -20, every 5th raw log V at +15 and
+  every 9th at -15 (past the ±12 clamps)."""
+  import numpy as np
+  lead = (h, w) if batch is None else (batch, h, w)
+  x = rng.normal(size=lead + (3,)).astype(np.float32)
+  P = rng.uniform(0.05, 2.0, lead + (1,)).astype(np.float32)
+  fl = (rng.normal(size=lead + (2,)) * 0.4).astype(np.float32)
+  lw = np.log(rng.uniform(0.01, 0.5, lead + (1,)) / 16.0).astype(np.float32)
+  off = np.asarray(STEP_KW["coord_offset"], np.float32)
+  z = x + (rng.normal(size=lead + (3,)) * 0.3).astype(np.float32)
+  rc = ((z - off) / STEP_KW["coord_scale"]).astype(np.float32)
+  lv = np.log(rng.uniform(0.05, 2.0, lead + (1,)) / 2.25).astype(np.float32)
+  fl.reshape(-1)[::11], fl.reshape(-1)[5::13] = 30.0, -30.0
+  lw.reshape(-1)[::7], lw.reshape(-1)[3::7] = 20.0, -20.0
+  lv.reshape(-1)[::5], lv.reshape(-1)[2::9] = 15.0, -15.0
+  return (np.concatenate([fl, lw], -1), np.concatenate([rc, lv], -1), x, P)
+
+
+def ulps(a, b):
+  """Largest distance in units in the last place between two float32
+  tensors (0: the same bits)."""
+  import torch
+  def ordered(t):
+    i = t.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+  return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def step_vs_plain(ff, args, r, thr):
+  """The heads-in entry's launch against its plain version on the same
+  inputs; raises on a miss. Returns the deviations."""
+  import torch
+  kw = dict(radius=r, threshold=thr, **STEP_KW)
+  got = ff._launch_step(*args, r, *STEP_KW.values(), thr, 1e8)
+  want = ff.fused_filter_step_reference(*args, **kw)
+  torch.cuda.synchronize()
+  flow, W, z, V = want[3:]  # the plain mask just under and over the gate
+  chi2 = torch.stack([ff.fused_warp_kalman_reference(
+      args[2], args[3], flow, W, z, V, r, t)[2] for t in (thr * (1 - 1e-5),
+                                                         thr * (1 + 1e-5))])
+  away = chi2[0] == chi2[1]  # not within 1e-5 of the gate
+  out = {"ulps": {n: ulps(g, w) for n, g, w in
+                  zip(("flow", "W", "z", "V"), got[3:], want[3:])},
+         "max_abs_dx": (got[0] - want[0]).abs().max().item(),
+         "max_rel_dP": ((got[1] - want[1]).abs() / want[1].abs()).max().item(),
+         "mask_equal_away_from_ties": bool(torch.equal(got[2][away],
+                                                       want[2][away])),
+         "ties": int((~away).sum().item()),
+         "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+         "flow_at_bound": int((want[3].abs() == r).sum().item())}
+  out["max_abs_err"] = max((g.float() - w.float()).abs().max().item()
+                           for g, w in zip(got, want))
+  if not (max(out["ulps"].values()) <= ULP_TOL and out["max_abs_dx"] <= TOL_X
+          and out["max_rel_dP"] <= TOL_P and out["mask_equal_away_from_ties"]):
+    raise AssertionError(f"fused_filter_step disagrees with its plain "
+                         f"version: {out}")
+  return out
+
+
+def step_grads(ff, args, r, thr):
+  """Gradients of a loss on all six differentiable outputs of the heads-in
+  entry through its autograd node and through the plain version, on the
+  card; raises unless the four inputs' agree at the golden tolerance."""
+  import numpy as np
+  import torch
+  g = torch.Generator(device=args[0].device).manual_seed(8)
+  kw = dict(radius=r, threshold=thr, **STEP_KW)
+  cots = None
+  grads = []
+  for fn in (ff.fused_filter_step, ff.fused_filter_step_reference):
+    ts = [a.detach().clone().requires_grad_(True) for a in args]
+    out = fn(*ts, **kw)
+    diff = [o for i, o in enumerate(out) if i != 2]
+    if cots is None:
+      cots = [torch.randn(o.shape, generator=g, device=o.device)
+              for o in diff]
+    loss = sum(torch.sum(o * c) for o, c in zip(diff, cots))
+    grads.append(torch.autograd.grad(loss, ts))
+  res = {}
+  for name, k, p in zip(("raw_flow_head", "raw_coord_head", "x_prev",
+                         "P_prev"), *grads):
+    res[name] = (k - p).abs().max().item()
+    if not (p.abs().max().item() > 0 and np.allclose(
+        k.cpu().numpy(), p.cpu().numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)):
+      raise AssertionError(f"fused_filter_step gradient of {name} "
+                           f"disagrees: {res[name]}")
+  return res
+
+
+def profiled_kernels(fn, n=5):
+  """CUDA kernels one call of ``fn`` runs (torch.profiler's trace, as
+  tools/profile_online.py reads it)."""
+  from kfnet_tpu_torch.tools import profile_online
+  return len(profile_online.trace_kernels(fn, n)[0]) / n
+
+
+def same_outputs(a, b):
+  """(bit-equal, largest |difference|) of two relocalisers' states and of
+  the packed outputs of their process() calls."""
+  import numpy as np
+  import torch
+  def packed(outs):
+    return np.stack([np.concatenate([[i["consistent_frac"]],
+                                     p.reshape(-1), [i["num_inliers"],
+                                                     i["inlier_ratio"]]])
+                     for p, i in outs])
+  pa, pb = packed(a[1]), packed(b[1])
+  xa, Pa = a[0].state[:2]
+  xb, Pb = b[0].state[:2]
+  return {"bit_equal": bool(torch.equal(xa, xb) and torch.equal(Pa, Pb) and
+                            np.array_equal(pa, pb)),
+          "x_max_abs": (xa - xb).abs().max().item(),
+          "P_max_abs": (Pa - Pb).abs().max().item(),
+          "packed_max_abs": float(np.abs(pa - pb).max()),
+          "held": bool(torch.allclose(xa, xb, rtol=TOL_PATH, atol=TOL_PATH)
+                       and torch.allclose(Pa, Pb, rtol=TOL_PATH,
+                                          atol=TOL_PATH)
+                       and np.allclose(pa, pb, rtol=TOL_PATH,
+                                       atol=TOL_PATH))}
+
+
 def rodrigues(w):
   import numpy as np
   th = float(np.linalg.norm(w))
@@ -186,6 +344,34 @@ def host_syncs(reloc, frame):
   packed.cpu()
   return [str(w.message)[:120] for w in caught
           if "called a synchronizing" in str(w.message)]
+
+
+def capture_costs(reloc, frames):
+  """Host ms of process() (each ends in its one result copy) on a new
+  graphed relocaliser: the frame that captures the filter step, the next
+  one (a replay), the two after a reset (first_step, then a replay from
+  the new carry) and the one after an in-place weight update (which
+  captures again); raises unless only the first and last captured."""
+  import torch
+  def ms(frame):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reloc.process(frame)
+    return (time.perf_counter() - t0) * 1e3
+  reloc.process(frames[0])
+  out = {"capture": ms(frames[1]), "replay": ms(frames[2])}
+  graph = reloc._step
+  reloc.reset()
+  out["after_reset"] = [ms(frames[3]), ms(frames[4])]
+  kept = reloc._step is graph
+  leaf = next(p for p in graph._leaves if p.dim() == 4)
+  with torch.no_grad():
+    leaf.add_(0.0)  # a new version of the same values
+  out["after_weight_update"] = ms(frames[5])
+  if not (kept and reloc._step is not graph):
+    raise AssertionError("captures: not at the first filter frame and "
+                         "after the weight update only")
+  return out
 
 
 def cuda_ms(fn, n):
@@ -366,7 +552,7 @@ def main():
   from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
   from kfnet_tpu_torch.nn import layers as L
   from kfnet_tpu_torch.pose import ransac
-  from kfnet_tpu_torch.tools import conv_tiles
+  from kfnet_tpu_torch.tools import conv_tiles, profile_online
 
   # 1. environment
   t0 = time.time()
@@ -420,6 +606,24 @@ def main():
                                   "grad_atol": GRAD_ATOL},
       cases=errs, grads_vs_plain=grad_errs)
 
+  # 3b. the heads-in entry against its plain version
+  t0 = time.time()
+  srng = np.random.default_rng(3)
+  step_args = {}
+  step_errs = {}
+  for label, batch in (("B1_60x80_r4", None), ("B4_60x80_r4", 4)):
+    step_args[label] = [torch.from_numpy(a).to(dev)
+                        for a in raw_heads(srng, 60, 80, batch)]
+    step_errs[label] = step_vs_plain(ff, step_args[label], 4, 2.365974)
+  step_grad_errs = step_grads(
+      ff, [torch.from_numpy(a).to(dev) for a in raw_heads(srng, 17, 23)], 3,
+      7.814728)
+  say("fused_step_vs_plain", t0, tol={"ulps": ULP_TOL, "x_atol": TOL_X,
+                                      "P_rtol": TOL_P, "grad_rtol": GRAD_RTOL,
+                                      "grad_atol": GRAD_ATOL},
+      cases=step_errs,
+      grads_vs_plain=step_grad_errs)
+
   # 4. the conv kernels against their plain versions
   t0 = time.time()
   conv_cfg = kfnet.KFNetConfig(
@@ -444,11 +648,15 @@ def main():
   frames = np.random.default_rng(0).integers(0, 256, (8, 480, 640, 3),
                                              dtype=np.uint8)
   reloc = OnlineRelocalizer(params, cfg, K, device=dev, seed=0)
-  ff.fused_warp_kalman.launches = 0
+  # the main path's fused update is the heads-in entry, counted under replay
+  ff.fused_filter_step.launches = 0
   outs = [reloc.process(f) for f in frames]
   torch.cuda.synchronize()
-  launches = ff.fused_warp_kalman.launches
+  launches = ff.fused_filter_step.launches
   x_f, P_f = (a.clone() for a in reloc.state[:2])
+  eager = OnlineRelocalizer(params, cfg, K, device=dev, seed=0, graph=False)
+  graph_vs_eager = same_outputs((reloc, outs),
+                                (eager, [eager.process(f) for f in frames]))
   plain_cfg = dataclasses.replace(cfg, use_fused_kernel=False)
   plain = OnlineRelocalizer(params, plain_cfg, K, device=dev, seed=0)
   plain_outs = [plain.process(f) for f in frames]
@@ -468,9 +676,18 @@ def main():
       "consistent_frac_unfused": [i["consistent_frac"]
                                   for _, i in plain_outs],
       "inliers_last": outs[-1][1]["num_inliers"],
+      "graph_vs_eager": graph_vs_eager,
       "host_syncs_in_one_tick": host_syncs(reloc, frames[0]),
   }
+  graph_before = reloc._step
+  reloc.reset()
+  checks["host_syncs_after_reset"] = (host_syncs(reloc, frames[0]) +
+                                      host_syncs(reloc, frames[1]))
+  checks["graph_kept_across_reset"] = reloc._step is graph_before
   say("slice_full_width", t0, config="KFNetConfig() 640x480 bf16", **checks)
+  if not graph_vs_eager["held"]:
+    raise AssertionError(f"the graphed filter step disagrees with the eager "
+                         f"one: {graph_vs_eager}")
   if launches != len(frames) - 1:
     raise AssertionError(f"fused kernel launched {launches} times for "
                          f"{len(frames)} frames")
@@ -479,14 +696,16 @@ def main():
   if not torch.allclose(x_f, x_p, rtol=TOL_PATH, atol=TOL_PATH) or \
       not torch.allclose(P_f, P_p, rtol=TOL_PATH, atol=TOL_PATH):
     raise AssertionError("fused and unfused paths disagree")
-  if checks["host_syncs_in_one_tick"]:
+  if checks["host_syncs_in_one_tick"] or checks["host_syncs_after_reset"]:
     raise AssertionError("a frame's work waits on the device before its "
                          "result copy")
+  if not checks["graph_kept_across_reset"]:
+    raise AssertionError("reset() captured the filter step again")
 
   # 6. the conv-kernel configuration at full width
   t0 = time.time()
   reloc_c = OnlineRelocalizer(params, conv_cfg, K, device=dev, seed=0)
-  ff.fused_warp_kalman.launches = 0
+  ff.fused_filter_step.launches = 0
   c3.conv3x3_same.launches = 0
   c3.conv3x3_gn_chain.launches = 0
   L.layout_copies = 0
@@ -496,9 +715,14 @@ def main():
   outs_c += [reloc_c.process(f) for f in frames[2:]]
   torch.cuda.synchronize()
   weight_copies_later = c3.prepared_weights.copies - weight_copies_first_pair
-  conv_launches = {"fused_warp_kalman": ff.fused_warp_kalman.launches,
+  # "fused_warp_kalman" is the kernels line's name for the fused update
+  conv_launches = {"fused_warp_kalman": ff.fused_filter_step.launches,
                    "conv3x3_same": c3.conv3x3_same.launches,
                    "conv3x3_gn_chain": c3.conv3x3_gn_chain.launches}
+  eager_c = OnlineRelocalizer(params, conv_cfg, K, device=dev, seed=0,
+                              graph=False)
+  conv_graph_vs_eager = same_outputs(
+      (reloc_c, outs_c), (eager_c, [eager_c.process(f) for f in frames]))
   n_later = len(frames) - 1
   expected = {"fused_warp_kalman": n_later}
   for name in ("conv3x3_same", "conv3x3_gn_chain"):
@@ -545,6 +769,7 @@ def main():
       "consistent_frac": [i["consistent_frac"] for _, i in outs_c],
       "calls_in_path_vs_plain": in_path, "vs_plain_path": dev_vs_plain,
       "vs_default_config": dev_vs_xla, "bounds": BOUNDS,
+      "graph_vs_eager": conv_graph_vs_eager,
       "host_syncs_in_one_tick": host_syncs(reloc_c, frames[0]),
   }
   say("slice_conv_kernels", t0,
@@ -553,6 +778,9 @@ def main():
   if conv_launches != expected:
     raise AssertionError(f"kernel launches {conv_launches}, expected "
                          f"{expected}")
+  if not conv_graph_vs_eager["held"]:
+    raise AssertionError(f"the graphed filter step disagrees with the eager "
+                         f"one (conv kernels): {conv_graph_vs_eager}")
   if weight_copies_later:
     raise AssertionError(f"{weight_copies_later} weight layout copies after "
                          f"the second frame: the copy is not once per "
@@ -601,27 +829,91 @@ def main():
 
   # 8. times
   t0 = time.time()
+  # the TPU kernel's contract (fused_warp_kalman) at 60x80
   args, r, thr = main_inputs
-  kernel_ms = cuda_ms(lambda: ff.fused_warp_kalman(*args, radius=r,
-                                                   threshold=thr), 200)
-  plain_ms = cuda_ms(lambda: ff.fused_warp_kalman_reference(
-      *args, radius=r, threshold=thr), 200)
-  kernel_alone_ms = conv_tiles.graph_ms(lambda: ff.fused_warp_kalman(
-      *args, radius=r, threshold=thr), 20)
+  fwk = {"ms": cuda_ms(lambda: ff.fused_warp_kalman(*args, radius=r,
+                                                    threshold=thr), 200),
+         "plain_ms": cuda_ms(lambda: ff.fused_warp_kalman_reference(
+             *args, radius=r, threshold=thr), 200),
+         "alone_ms": conv_tiles.graph_ms(lambda: ff.fused_warp_kalman(
+             *args, radius=r, threshold=thr), 20)}
+  # the bound: each input read once, each output written once: per pixel
+  # 11 f32 in, 4 f32 + 1 byte out; ~70 f32 operations
+  h, w = args[0].shape[:2]
+  fwk["bytes"] = h * w * (11 * 4 + 4 * 4 + 1)
+  fwk["bound_ms"] = max(fwk["bytes"] / HBM_BYTES_PER_S,
+                        h * w * 70 / F32_FLOPS_PER_S) * 1e3
+  fwk["max_abs_err"] = errs["main_60x80_r4"]["max_abs_err"]
+  # the main path's entry (fused_filter_step), one 60x80 map and four:
+  # per pixel 11 f32 in (raw heads 3 + 4, x 3, P 1), 11 f32 + 1 byte out;
+  # ~130 f32 operations
+  skw = dict(radius=4, threshold=2.365974, **STEP_KW)
+  step = {}
+  for label, sa in step_args.items():
+    run = lambda sa=sa: ff.fused_filter_step(*sa, **skw)
+    pixels = sa[2][..., 0].numel()
+    row = {"ms": cuda_ms(run, 200),
+           "plain_ms": cuda_ms(lambda sa=sa: ff.fused_filter_step_reference(
+               *sa, **skw), 50),
+           "alone_ms": conv_tiles.graph_ms(run, 20),
+           "bytes": pixels * (11 * 4 + 11 * 4 + 1)}
+    ops_ms = pixels * 130 / F32_FLOPS_PER_S * 1e3
+    bytes_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    row["bound_ms"] = max(bytes_ms, ops_ms)
+    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    step[label] = row
+
+  def unfused_route(fh, ch, x, P):
+    """What the filter step launched around the update before the heads-in
+    entry: the nets' output steps, W * w_scale, the flow clip, then the TPU
+    kernel's contract."""
+    flow, W = oflownet.output_step(fh, 4)
+    W = W * STEP_KW["w_scale"]
+    z, V = scoordnet.output_step(ch, STEP_KW["coord_scale"],
+                                 STEP_KW["coord_offset"])
+    flow = torch.clamp(flow, -4.0, 4.0)
+    return ff.fused_warp_kalman(x, P, flow.contiguous(), W.contiguous(),
+                                z.contiguous(), V.contiguous(), radius=4,
+                                threshold=2.365974)
+
   more = np.random.default_rng(2).integers(0, 256, (16, 480, 640, 3),
                                            dtype=np.uint8)
   cycle = itertools.cycle(more)
-  # in turns, default, conv, conv, default: 8 frames each
-  turns = {"default": [], "conv_kernels": []}
-  for name, rl in (("default", reloc), ("conv_kernels", reloc_c),
-                   ("conv_kernels", reloc_c), ("default", reloc)):
-    turns[name].append(cuda_ms(lambda: rl.process(next(cycle)), 8))
+  serve = {"default": {"graph": reloc, "eager": eager},
+           "conv_kernels": {"graph": reloc_c, "eager": eager_c}}
+  for name, c in (("default", cfg), ("conv_kernels", conv_cfg)):
+    for mode in ("graph", "eager"):
+      rl = OnlineRelocalizer(params, c, K, device=dev, solve_pose=False,
+                             graph=mode == "graph")
+      for f in more[:2]:
+        rl.process(f)
+      serve[name]["filter_" + mode] = rl
+  # in turns, default, conv, conv, default: 8 frames each, graphed and eager
+  turns = {"default": [], "conv_kernels": []}  # process(), graphed (served)
+  turns_eager = {"default": [], "conv_kernels": []}
+  filter_host_ms = {n: {"graph": [], "eager": []} for n in serve}
+  filter_ms = {n: {"graph": [], "eager": []} for n in serve}
+  for name in ("default", "conv_kernels", "conv_kernels", "default"):
+    sv = serve[name]
+    turns[name].append(cuda_ms(lambda: sv["graph"].process(next(cycle)), 8))
+    turns_eager[name].append(cuda_ms(lambda: sv["eager"].process(next(cycle)),
+                                     8))
+    for mode in ("graph", "eager"):
+      rl = sv["filter_" + mode]
+      filter_host_ms[name][mode].append(
+          profile_online.host_ms(lambda: rl.tick(next(cycle)), 8))
+      filter_ms[name][mode].append(
+          cuda_ms(lambda: rl.process(next(cycle)), 8))
+  capture = {name: capture_costs(OnlineRelocalizer(
+      params, c, K, device=dev, solve_pose=False), more)
+             for name, c in (("default", cfg), ("conv_kernels", conv_cfg))}
   process_ms = sum(turns["default"]) / 2
   process_conv_ms = sum(turns["conv_kernels"]) / 2
-  # every conv kernel call of one served filter-step frame, timed alone
+  # every conv kernel call of one filter-step frame, served eagerly (a
+  # replay calls no wrapper), timed alone
   frame_calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
   with recording(c3, frame_calls):
-    reloc_c.process(next(cycle))
+    eager_c.process(next(cycle))
   if {k: len(v) for k, v in frame_calls.items()} != {
       k: len(later[k]) for k in frame_calls}:
     raise AssertionError("conv kernel calls in the timed frame: "
@@ -637,18 +929,21 @@ def main():
   ones = torch.ones_like(P_now, dtype=torch.bool)
   pose_ms = cuda_ms(lambda: ransac.solve_pnp_from_maps(
       x_now, P_now, ones, K_dev, gen), 10)
-  # the bound: each input read once, each output written once, per pixel
-  # 11 f32 in, 4 f32 + 1 byte out; ~70 f32 operations per pixel
-  h, w = args[0].shape[:2]
-  bytes_moved = h * w * (11 * 4 + 4 * 4 + 1)
-  bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-  ops_ms = h * w * 70 / F32_FLOPS_PER_S * 1e3
+  # last, so that the profiler runs after every time above is taken
+  b1 = step_args["B1_60x80_r4"]
+  route_kernels = {
+      "before": profiled_kernels(lambda: unfused_route(*b1)),
+      "fused_filter_step": profiled_kernels(
+          lambda: ff.fused_filter_step(*b1, **skw))}
+  removed = route_kernels["before"] - route_kernels["fused_filter_step"]
   print(smi, flush=True)
   say("times", t0, gpu=gpu, nvidia_smi=smi, process_ms_per_frame=process_ms,
       process_ms_per_frame_conv_kernels=process_conv_ms, process_turns=turns,
-      fused_kernel_ms=kernel_ms, fused_kernel_alone_ms=kernel_alone_ms,
-      plain_ms=plain_ms, pose_solve_ms=pose_ms,
-      kernel_bytes=bytes_moved,
+      process_turns_eager=turns_eager, filter_step_host_ms=filter_host_ms,
+      filter_step_ms=filter_ms, capture_ms=capture,
+      fused_warp_kalman_entry=fwk,
+      fused_filter_step=step, fused_route_kernels=route_kernels,
+      pose_solve_ms=pose_ms,
       conv3x3_same_per_shape={str(k): v for k, v in same_rows.items()},
       conv3x3_same_per_frame=same_frame,
       conv3x3_gn_chain_per_shape={str(k): v for k, v in chain_rows.items()},
@@ -659,17 +954,24 @@ def main():
   bad = [m for m in FORBIDDEN if m in sys.modules]
   if bad:
     raise AssertionError(f"imported {bad}")
+  b1, b4 = step["B1_60x80_r4"], step["B4_60x80_r4"]
   print(json.dumps({"kernels": [{
+      # the fused update: the main path's heads-in entry, one 60x80 map
+      # (ms and plain_ms back to back, alone_ms its wrapper in a graph);
+      # the same at four maps, and the TPU kernel's contract entry, beside
       "name": "fused_warp_kalman", "route": "cuda",
       "source": "kfnet_tpu_torch/kernels/csrc/fused_filter.cu",
       "replaces": "kfnet_tpu/kernels/fused_filter.py:44",
       "launches": launches,
-      "max_abs_err": errs["main_60x80_r4"]["max_abs_err"],
-      "ms": kernel_ms, "plain_ms": plain_ms,
-      "bound_ms": max(bytes_ms, ops_ms),
-      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+      "max_abs_err": step_errs["B1_60x80_r4"]["max_abs_err"],
+      "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+      "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
       "library_ms": None,
-      "alone_ms": kernel_alone_ms, "library_alone_ms": None}, {
+      "alone_ms": b1["alone_ms"], "library_alone_ms": None,
+      "alone_ms_batch4": b4["alone_ms"], "bound_ms_batch4": b4["bound_ms"],
+      "ms_batch4": b4["ms"],
+      "launches_removed_per_frame": removed,
+      "warp_kalman_entry": fwk}, {
       # conv kernels: times summed over one filter-step frame's calls;
       # ms, plain_ms and library_ms back to back per distinct shape,
       # alone_ms and library_alone_ms device times of the served calls

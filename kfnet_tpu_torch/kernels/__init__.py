@@ -1,1 +1,2 @@
-"""Kernels: the fused warp + Kalman update (CUDA) and the cost volume."""
+"""Kernels: the fused filter update and the conv kernels (CUDA, with their
+plain PyTorch versions), the cost volume, and the kernels' launch counts."""

@@ -20,7 +20,8 @@ layout of their own, made once per weight tensor (``prepared_weights``),
 and accumulate bf16 products in float32. Each wrapper checks its
 arguments, takes the plain version only for CPU tensors, launches the
 kernel for CUDA tensors and raises otherwise; its ``launches`` attribute
-counts the calls that launched the kernel. Neither kernel has a backward
+counts the calls that launched the kernel (``kernels.launches``: under CUDA
+graph capture, once per replay). Neither kernel has a backward
 (nor has either Pallas kernel): a call that autograd would record raises.
 """
 
@@ -34,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from kfnet_tpu_torch.kernels import launches
 from kfnet_tpu_torch.nn import layers as L
 
 LIBRARY = "kfnet_conv3x3"
@@ -343,7 +345,7 @@ def conv3x3_same(x, w, bias=None, relu: bool = False,
     partial = torch.empty((pl_.splits, h * wd, cout), dtype=torch.float32,
                           device=dev)
   launch_same(x, prepared_weights(w), bias, y, partial, relu, pl_)
-  conv3x3_same.launches += 1
+  launches.count(conv3x3_same)
   return y
 
 
@@ -368,7 +370,7 @@ def conv3x3_gn_chain(x, scale, shift, w, prologue_relu: bool = True):
   s2 = torch.empty((cout,), dtype=torch.float32, device=dev)
   launch_chain(x, scale, shift, prepared_weights(w), y, partial, s1, s2,
                prologue_relu, pl_)
-  conv3x3_gn_chain.launches += 1
+  launches.count(conv3x3_gn_chain)
   return y, s1, s2
 
 

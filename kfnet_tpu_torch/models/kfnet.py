@@ -2,11 +2,13 @@
 ``kfnet_tpu/models/kfnet.py``).
 
 One filter step: OFlowNet (flow, W) → warp of (x, P) → SCoordNet (z, V) →
-Kalman update with χ² consistency reset. The warp ∘ gain ∘ update inner
-piece runs as the CUDA kernel ``kernels/fused_filter.py`` when
-``use_fused_kernel`` is set (the JAX package's ``use_pallas``). The nets'
-``conv_impl`` picks their conv kernels (``kernels/conv3x3.py``);
-``kernel_shapes`` lists the calls of one frame.
+Kalman update with χ² consistency reset. When ``use_fused_kernel`` is set
+(the JAX package's ``use_pallas``) the two heads' output steps, the flow
+clip, the warp and the update run as one CUDA kernel
+(``kernels/fused_filter.fused_filter_step``) on the heads' raw outputs, one
+launch for a frame or a (B, ...) batch of frames. The nets' ``conv_impl``
+picks their conv kernels (``kernels/conv3x3.py``); ``kernel_shapes`` lists
+the calls of one frame.
 """
 
 from __future__ import annotations
@@ -85,25 +87,22 @@ def flow_from_features(params, config: KFNetConfig, feat_prev, feat_cur):
   return flow, W
 
 
-def _fused_update(config: KFNetConfig, x_prev, P_prev, flow, W, z, V):
-  """warp ∘ gain ∘ innovation ∘ update: the CUDA kernel or the composition.
+def _kernel_path(config: KFNetConfig) -> bool:
+  """The fused kernel takes the update; the adaptive path (a cap > 1)
+  needs a global reduction between warp and update and never does."""
+  return config.use_fused_kernel and not config.adaptive_alpha_max > 1.0
 
-  Returns (x_post, P_post, consistent, prior); prior is (x_prior, P_prior)
-  on the composition and None on the kernel path."""
-  # clip first, so both paths see the same flow for any caller
+
+def _composed_update(config: KFNetConfig, x_prev, P_prev, flow, W, z, V):
+  """warp ∘ gain ∘ innovation ∘ update as a composition, with the adaptive
+  inflation when it is on. Returns (x_post, P_post, consistent, (x_prior,
+  P_prior))."""
+  # clip first, as the kernel does, so both paths see the same flow
   r = float(config.oflownet.search_radius)
   flow = torch.clamp(flow, -r, r)
-  adaptive = config.adaptive_alpha_max > 1.0
-  if config.use_fused_kernel and not adaptive:
-    x_post, P_post, consistent = fused_filter.fused_warp_kalman(
-        x_prev.contiguous(), P_prev.contiguous(), flow.contiguous(),
-        W.contiguous(), z.contiguous(), V.contiguous(),
-        radius=config.oflownet.search_radius,
-        threshold=config.chi2_threshold, invalid_cov=config.invalid_cov)
-    return x_post, P_post, consistent, None
   x_pr, P_pr, valid = warp_lib.warp_state_cov(
       x_prev, P_prev, flow, W, invalid_cov=config.invalid_cov)
-  if adaptive:
+  if config.adaptive_alpha_max > 1.0:
     maha = kalman.mahalanobis_sq(z - x_pr, P_pr, V)
     # mean over warp-valid pixels only: the invalid band's maha ≈ 0
     v = valid.to(torch.float32)
@@ -118,25 +117,39 @@ def _fused_update(config: KFNetConfig, x_prev, P_prev, flow, W, z, V):
 
 def filter_step(params, config: KFNetConfig, x_prev, P_prev, feat_prev,
                 image_cur):
-  """One recursive-filter step on one frame (no batch dim).
+  """One recursive-filter step on one frame, or on a batch of B frames in
+  lockstep (the kernel path: one fused launch for all B maps).
 
   Args:
-    x_prev/P_prev: (h, w, 3)/(h, w, 1) previous posterior.
-    feat_prev: (h, w, C) OFlowNet features of the previous frame.
-    image_cur: (H, W, 3) current frame (or its s2d form).
+    x_prev/P_prev: ([B,] h, w, 3)/([B,] h, w, 1) previous posterior.
+    feat_prev: ([B,] h, w, C) OFlowNet features of the previous frame.
+    image_cur: ([B,] H, W, 3) current frame (or its s2d form).
 
   Returns:
     (x_post, P_post, feat_cur, aux) with aux = dict(flow, W, z, V,
     consistent) and, on the composition, x_prior and P_prior.
   """
   feat_cur = encode(params, config, image_cur)
+  if _kernel_path(config):
+    cv = cost_volume(feat_prev, feat_cur, config.oflownet.search_radius)
+    raw_flow = oflownet.decode_raw(params["oflownet"], config.oflownet, cv)
+    raw_coord = scoordnet.apply_raw(params["scoordnet"], config.scoordnet,
+                                    image_cur)
+    sc = config.scoordnet
+    x_post, P_post, consistent, flow, W, z, V = fused_filter.fused_filter_step(
+        raw_flow, raw_coord, x_prev.contiguous(), P_prev.contiguous(),
+        radius=config.oflownet.search_radius, w_scale=config.w_scale,
+        coord_scale=sc.coord_scale, coord_offset=sc.coord_offset,
+        log_w_clip=oflownet.LOG_VAR_CLIP, log_v_clip=scoordnet.LOG_VAR_CLIP,
+        threshold=config.chi2_threshold, invalid_cov=config.invalid_cov)
+    aux = {"flow": flow, "W": W, "z": z, "V": V, "consistent": consistent}
+    return x_post, P_post, feat_cur, aux
   flow, W = flow_from_features(params, config, feat_prev, feat_cur)
   z, V = measure(params, config, image_cur)
-  x_post, P_post, consistent, prior = _fused_update(
+  x_post, P_post, consistent, prior = _composed_update(
       config, x_prev, P_prev, flow, W, z, V)
-  aux = {"flow": flow, "W": W, "z": z, "V": V, "consistent": consistent}
-  if prior is not None:
-    aux["x_prior"], aux["P_prior"] = prior
+  aux = {"flow": flow, "W": W, "z": z, "V": V, "consistent": consistent,
+         "x_prior": prior[0], "P_prior": prior[1]}
   return x_post, P_post, feat_cur, aux
 
 

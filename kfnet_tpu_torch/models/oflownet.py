@@ -15,12 +15,14 @@ from typing import Sequence, Tuple
 
 import torch
 
+from kfnet_tpu_torch.core import heads
 from kfnet_tpu_torch.kernels.cost_volume import cost_volume
 from kfnet_tpu_torch.models import scoordnet
 from kfnet_tpu_torch.nn import layers as L
 
 LOG_VAR_MIN = -12.0
 LOG_VAR_MAX = 12.0
+LOG_VAR_CLIP = (LOG_VAR_MIN, LOG_VAR_MAX)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,9 +118,9 @@ def _crop_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
   return x[..., :h, :w]
 
 
-def decode(params, config: OFlowNetConfig, cv: torch.Tensor):
-  """U-Net over the (..., h, w, K) cost volume -> (flow (..., h, w, 2),
-  process variance (..., h, w, 1)), float32."""
+def decode_raw(params, config: OFlowNetConfig, cv: torch.Tensor):
+  """U-Net over the (..., h, w, K) cost volume -> the head's raw float32
+  (..., h, w, 3): raw flow (2), raw log-variance (1), contiguous."""
   dec = _decoder_layers(config, single_frame=cv.dim() == 3)
   x, lead = scoordnet.to_nchw(cv)
   e0 = dec["enc0"].apply(params["enc0"], x)
@@ -128,11 +130,21 @@ def decode(params, config: OFlowNetConfig, cv: torch.Tensor):
   f1 = dec["fuse1"].apply(params["fuse1"], torch.cat([u1, d1], dim=1))
   u0 = _crop_to(dec["up0"].apply(params["up0"], f1), *e0.shape[-2:])
   f0 = dec["fuse0"].apply(params["fuse0"], torch.cat([u0, e0], dim=1))
-  out = scoordnet.from_nchw(dec["head"].apply(params["head"], f0),
-                            lead).to(torch.float32)
-  flow = float(config.search_radius) * torch.tanh(out[..., :2])
-  log_var = torch.clamp(out[..., 2:3], LOG_VAR_MIN, LOG_VAR_MAX)
-  return flow, torch.exp(log_var)
+  return scoordnet.from_nchw(dec["head"].apply(params["head"], f0),
+                             lead).to(torch.float32)
+
+
+def output_step(raw: torch.Tensor, radius: int):
+  """The head's output step: raw (..., 3) -> (flow ``r·tanh(raw[..., :2])``
+  (..., 2), process variance ``exp(clip(raw[..., 2:3], ±12))`` (..., 1))
+  (``core.heads.flow_output``; the fused filter kernel computes the same)."""
+  return heads.flow_output(raw, radius, LOG_VAR_CLIP)
+
+
+def decode(params, config: OFlowNetConfig, cv: torch.Tensor):
+  """U-Net over the (..., h, w, K) cost volume -> (flow (..., h, w, 2),
+  process variance (..., h, w, 1)), float32."""
+  return output_step(decode_raw(params, config, cv), config.search_radius)
 
 
 def apply(params, config: OFlowNetConfig, image_prev: torch.Tensor,

@@ -16,15 +16,16 @@ batch of frames always takes the serial "xla" path, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Sequence, Tuple
 
 import torch
 
+from kfnet_tpu_torch.core import heads
 from kfnet_tpu_torch.nn import layers as L
 
 LOG_VAR_MIN = -12.0
 LOG_VAR_MAX = 12.0
+LOG_VAR_CLIP = (LOG_VAR_MIN, LOG_VAR_MAX)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,15 +197,10 @@ def from_nchw(y: torch.Tensor, lead: tuple) -> torch.Tensor:
   return y.reshape(lead + tuple(y.shape[1:])).contiguous()
 
 
-@functools.lru_cache(maxsize=16)
-def _offset_tensor(offset: tuple, device: torch.device) -> torch.Tensor:
-  # cached: a host->device copy of a fresh tensor would sync every frame
-  return torch.tensor(offset, dtype=torch.float32, device=device)
-
-
-def apply(params, config: SCoordNetConfig, image: torch.Tensor):
-  """(..., H, W, 3) image in [0, 1] or uint8 (or its s2d form) ->
-  (coords (..., H/8, W/8, 3), variance (..., H/8, W/8, 1)), float32."""
+def apply_raw(params, config: SCoordNetConfig, image: torch.Tensor):
+  """(..., H, W, 3) image in [0, 1] or uint8 (or its s2d form) -> the
+  head's raw float32 (..., H/8, W/8, 4): raw coordinates (3), raw
+  log-variance (1), contiguous."""
   image = ingest(maybe_space_to_depth(config, image))
   single = image.dim() == 3
   if config.conv_impl == "pallas_fused" and single:
@@ -212,10 +208,19 @@ def apply(params, config: SCoordNetConfig, image: torch.Tensor):
   else:
     x, lead = to_nchw(image)
     out = from_nchw(build(config, single).apply(params, x), lead)
-  out = out.to(torch.float32)
-  raw = out[..., :3]
-  log_var = torch.clamp(out[..., 3:4], LOG_VAR_MIN, LOG_VAR_MAX)
-  offset = _offset_tensor(tuple(config.coord_offset), out.device)
-  coords = raw * config.coord_scale + offset
-  variance = torch.exp(log_var) * (config.coord_scale ** 2)
-  return coords, variance
+  return out.to(torch.float32)
+
+
+def output_step(raw: torch.Tensor, coord_scale: float, coord_offset):
+  """The head's output step: raw (..., 4) -> (coords ``raw[..., :3] ·
+  coord_scale + coord_offset`` (..., 3), variance ``exp(clip(raw[..., 3:4],
+  ±12)) · coord_scale²`` (..., 1)) (``core.heads.coord_output``; the fused
+  filter kernel computes the same)."""
+  return heads.coord_output(raw, coord_scale, coord_offset, LOG_VAR_CLIP)
+
+
+def apply(params, config: SCoordNetConfig, image: torch.Tensor):
+  """(..., H, W, 3) image in [0, 1] or uint8 (or its s2d form) ->
+  (coords (..., H/8, W/8, 3), variance (..., H/8, W/8, 1)), float32."""
+  return output_step(apply_raw(params, config, image), config.coord_scale,
+                     config.coord_offset)

@@ -1,8 +1,11 @@
 """Where a served frame's time goes on the card: device busy share, kernel
 count and the heaviest kernels of ``OnlineRelocalizer.process`` at full
 width (640x480, default KFNetConfig, weights from a seed), for the whole
-frame, the filter step alone and the pose solve alone, plus the fused
-warp + Kalman kernel's device time.
+frame, the filter step alone (as served: one CUDA graph replayed a frame;
+and eagerly, ``graph=False``, beside it, with the kernels by name whose
+counts differ between the two) and the pose solve alone, plus
+the fused update's device time and the filter step's host ms a frame (the
+enqueue, without the profiler), graphed and eager.
 
     python -m kfnet_tpu_torch.tools.profile_online [--frames 4] [--conv-kernels]
 
@@ -35,13 +38,19 @@ from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
 from kfnet_tpu_torch.pose import ransac
 
 # the port's own kernels, by a part of their names in the trace
-OWN_KERNELS = ("fused_warp_kalman", "conv3x3_wgmma", "moments_kernel",
+OWN_KERNELS = ("fused_filter_kernel", "conv3x3_wgmma", "moments_kernel",
                "split_sum_kernel")
 
 
-def trace_kernels(fn, n):
+# a trace's device work: kernels, and the copies and fills that run on the
+# copy engines (a CUDA graph runs the same as memcpy / memset kernels)
+COPIES = ("gpu_memcpy", "gpu_memset")
+
+
+def trace_kernels(fn, n, copies=False):
   """(name, start us, duration us) of the kernels run by n calls of fn,
-  and the wall ms per call."""
+  with ``copies`` also of its copies and fills (named "[gpu_memcpy] ..."
+  and "[gpu_memset] ..."), and the wall ms per call."""
   fn()
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -55,8 +64,22 @@ def trace_kernels(fn, n):
     prof.export_chrome_trace(path)
     with open(path) as f:
       events = json.load(f)["traceEvents"]
-  return [(e["name"], e["ts"], e["dur"]) for e in events
-          if e.get("cat") == "kernel"], wall_ms
+  cats = ("kernel",) + (COPIES if copies else ())
+  return [(e["name"] if e["cat"] == "kernel" else f"[{e['cat']}] {e['name']}",
+           e["ts"], e["dur"]) for e in events if e.get("cat") in cats], wall_ms
+
+
+def host_ms(tick, n):
+  """Mean host ms of ``tick()`` (the enqueue; each result waited for
+  outside the timed span)."""
+  total = 0.0
+  for _ in range(n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tick()
+    total += time.perf_counter() - t0
+    res.cpu()
+  return total * 1e3 / n
 
 
 def summarize(kernels, wall_ms, n):
@@ -83,6 +106,15 @@ def summarize(kernels, wall_ms, n):
                              for k, v in by_name.most_common(6)}}
 
 
+def kernel_count_diff(kernels_a, kernels_b, n):
+  """Per name, the launches a call of a makes minus those of b (names
+  whose counts differ only), over n calls each."""
+  a = collections.Counter(name[:120] for name, _, _ in kernels_a)
+  b = collections.Counter(name[:120] for name, _, _ in kernels_b)
+  return {k: (a[k] - b[k]) / n for k in sorted(set(a) | set(b))
+          if a[k] != b[k]}
+
+
 def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--frames", type=int, default=4)
@@ -102,10 +134,13 @@ def main():
       0, 256, (8, 480, 640, 3), dtype=np.uint8)
   it = itertools.cycle(frames)
   full = OnlineRelocalizer(params, cfg, K, device=dev)
-  nopose = OnlineRelocalizer(params, cfg, K, device=dev, solve_pose=False)
+  nopose = {mode: OnlineRelocalizer(params, cfg, K, device=dev,
+                                    solve_pose=False, graph=mode == "graph")
+            for mode in ("graph", "eager")}
   for f in frames[:2]:
     full.process(f)
-    nopose.process(f)
+    for rl in nopose.values():
+      rl.process(f)
   n = args.frames
   out = {"gpu": torch.cuda.get_device_name(0), "torch": torch.__version__,
          "config": "conv_kernels" if args.conv_kernels else "default"}
@@ -117,17 +152,36 @@ def main():
   except (OSError, subprocess.TimeoutExpired) as e:
     out["nvidia_smi"] = f"failed: {e}"
   rng = np.random.default_rng(0)
-  fargs = [torch.as_tensor(rng.uniform(0.1, 1.0, (60, 80, c)).astype(
-      np.float32), device=dev) for c in (3, 1, 2, 1, 3, 1)]
-  kernels, _ = trace_kernels(lambda: fused_filter.fused_warp_kalman(
-      *fargs, radius=4, threshold=cfg.chi2_threshold), 200)
-  ours = [d for name, _, d in kernels if "fused_warp_kalman" in name]
+  heads = [torch.as_tensor(rng.uniform(-1.0, 1.0, (60, 80, c)).astype(
+      np.float32), device=dev) for c in (3, 4)]
+  state = [torch.as_tensor(rng.uniform(0.1, 1.0, (60, 80, c)).astype(
+      np.float32), device=dev) for c in (3, 1)]
+  kernels, _ = trace_kernels(lambda: fused_filter.fused_filter_step(
+      *heads, *state, radius=4, w_scale=cfg.w_scale, coord_scale=1.0,
+      coord_offset=(0.0, 0.0, 0.0), log_w_clip=oflownet.LOG_VAR_CLIP,
+      log_v_clip=scoordnet.LOG_VAR_CLIP, threshold=cfg.chi2_threshold), 200)
+  ours = [d for name, _, d in kernels if "fused_filter_kernel" in name]
   out["fused_kernel_device_ms"] = (sum(ours) / len(ours) / 1e3
                                    if ours else "not measured")
   out["process"] = summarize(*trace_kernels(
       lambda: full.process(next(it)), n), n)
-  out["filter_step_only"] = summarize(*trace_kernels(
-      lambda: nopose.process(next(it)), n), n)
+  traces = {mode: trace_kernels(lambda rl=rl: rl.process(next(it)), n,
+                                copies=True)
+            for mode, rl in nopose.items()}
+  kernels_of = lambda ev: [e for e in ev if not e[0].startswith("[gpu_mem")]
+  for mode, key in (("graph", "filter_step_only"),
+                    ("eager", "filter_step_only_eager")):
+    out[key] = summarize(kernels_of(traces[mode][0]), traces[mode][1], n)
+  # the kernels, copies and fills a replay runs that the eager step does
+  # not (positive), and back (negative)
+  out["filter_step_graph_minus_eager"] = kernel_count_diff(
+      traces["graph"][0], traces["eager"][0], n)
+  # the profiler sees the kernels a replay runs, or it sees none of them
+  out["graph_kernels_traced"] = (
+      out["filter_step_only"]["kernels_per_call"] > 1)
+  out["filter_step_host_ms"] = {
+      mode: host_ms(lambda rl=rl: rl.tick(next(it)), n)
+      for mode, rl in nopose.items()}
   x, P = full.state[:2]
   ones = torch.ones_like(P, dtype=torch.bool)
   Kd = torch.as_tensor(K, device=dev)

@@ -20,6 +20,17 @@ are held against autograd through the plain version on the CPU at the
 golden tolerance (rtol 5e-4, atol 5e-5). The small float32
 conv-kernel configuration on the card is held against the same on the CPU
 at tests/test_torch_conv3x3.py's tolerances for that config.
+
+The fused update's heads-in entry (fused_filter_step) is held against its
+plain version, one map and a batch of four: flow, W,
+z and V within 4 units in the last place (libdevice's tanhf and expf on
+both sides), x and P at the fused kernel's tolerances, the mask equal away
+from χ² ties; its gradients against the CPU's at the golden tolerance.
+Each C entry captured in a CUDA graph and replayed gives its eager call's
+bits and counts once per replay; the relocaliser's graphed filter step
+gives the eager step's bits (held at rtol = atol = 1e-3), follows weights
+updated in place between two ticks, is replayed from the new carry after a
+reset without a second capture, and counts its launches under replay.
 """
 
 import numpy as np
@@ -30,6 +41,7 @@ import kfnet_tpu_torch
 from kfnet_tpu_torch.eval.online import OnlineRelocalizer
 from kfnet_tpu_torch.kernels import conv3x3 as tc3
 from kfnet_tpu_torch.kernels import fused_filter as tff
+from kfnet_tpu_torch.kernels import launches
 from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
 from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.tools import conv_tiles
@@ -106,11 +118,11 @@ def test_online_tiny_on_card_matches_cpu(cuda):
                                              dtype=np.uint8)
   on_card = OnlineRelocalizer(params, cfg, K, solve_pose=False, device=cuda)
   on_cpu = OnlineRelocalizer(params, cfg, K, solve_pose=False, device="cpu")
-  before = tff.fused_warp_kalman.launches
+  before = tff.fused_filter_step.launches  # the main path's entry
   for f in frames:
     on_card.process(f)
     on_cpu.process(f)
-  assert tff.fused_warp_kalman.launches == before + 3
+  assert tff.fused_filter_step.launches == before + 3
   for g, w in zip(on_card.state, on_cpu.state):
     np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
                                atol=2e-5)
@@ -340,3 +352,269 @@ def test_conv_kernel_slice_on_card_matches_cpu(cuda):
                                err_msg=k)
   for k, rtol in (("P", 1.5e-2), ("V", 1.5e-2), ("W", 2e-2)):
     np.testing.assert_allclose(got[k], want[k], rtol=rtol, err_msg=k)
+
+
+# ------------------------------------- the heads-in entry and the CUDA graph
+
+STEP_KW = dict(w_scale=16.0, coord_scale=1.5, coord_offset=(0.5, -1.0, 2.0),
+               log_w_clip=oflownet.LOG_VAR_CLIP,
+               log_v_clip=scoordnet.LOG_VAR_CLIP)
+
+
+def make_heads(seed, h, w, batch=None, extreme=True):
+  """Raw heads and a previous state (tests/test_torch_fused_filter.py's
+  draw): with ``extreme``, raw flows deep in tanh's saturation and
+  log-variances past ±12."""
+  rng = np.random.default_rng(seed)
+  lead = (h, w) if batch is None else (batch, h, w)
+  x = rng.normal(size=lead + (3,)).astype(np.float32)
+  P = rng.uniform(0.05, 2.0, lead + (1,)).astype(np.float32)
+  fl = (rng.normal(size=lead + (2,)) * 0.4).astype(np.float32)
+  lw = np.log(rng.uniform(0.01, 0.5, lead + (1,)) / 16.0).astype(np.float32)
+  off = np.asarray(STEP_KW["coord_offset"], np.float32)
+  z = x + (rng.normal(size=lead + (3,)) * 0.3).astype(np.float32)
+  rc = ((z - off) / STEP_KW["coord_scale"]).astype(np.float32)
+  lv = np.log(rng.uniform(0.05, 2.0, lead + (1,)) / 2.25).astype(np.float32)
+  if extreme:
+    fl.reshape(-1)[::11], fl.reshape(-1)[5::13] = 30.0, -30.0
+    lw.reshape(-1)[::7], lw.reshape(-1)[3::7] = 20.0, -20.0
+    lv.reshape(-1)[::5], lv.reshape(-1)[2::9] = 15.0, -15.0
+  return [torch.from_numpy(a) for a in (np.concatenate([fl, lw], -1),
+                                        np.concatenate([rc, lv], -1), x, P)]
+
+
+def ulps(a, b):
+  def ordered(t):
+    i = t.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+  return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+@pytest.mark.parametrize("batch", [None, 4])
+def test_step_kernel_matches_plain(cuda, batch):
+  args = [a.to(cuda) for a in make_heads(40, 60, 80, batch)]
+  r, thr = 4, 2.365974
+  want = tff.fused_filter_step_reference(*args, radius=r, threshold=thr,
+                                         **STEP_KW)
+  got = tff._launch_step(*args, r, *STEP_KW.values(), thr, 1e8)
+  torch.cuda.synchronize()
+  for name, g, w in zip(("flow", "W", "z", "V"), got[3:], want[3:]):
+    assert ulps(g, w) <= 4, name
+  np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                             atol=2e-5)
+  np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                             rtol=2e-5)
+  flow, W, z, V = want[3:]
+  near = [tff.fused_warp_kalman_reference(args[2], args[3], flow, W, z, V, r,
+                                          thr * f)[2]
+          for f in (1 - 1e-5, 1 + 1e-5)]
+  away = near[0] == near[1]
+  assert torch.equal(got[2][away], want[2][away])
+  assert (want[3].abs() == r).any()  # saturated heads reach the bound
+
+
+def test_step_kernel_counts_and_rejects_bad_inputs(cuda):
+  args = [a.to(cuda) for a in make_heads(41, 12, 16)]
+  before = tff.fused_filter_step.launches
+  out = tff.fused_filter_step(*args, radius=3, **STEP_KW)
+  torch.cuda.synchronize()
+  assert tff.fused_filter_step.launches == before + 1
+  assert [o.shape[-1] for o in out] == [3, 1, 1, 2, 1, 3, 1]
+  assert out[2].dtype == torch.bool
+  with pytest.raises(TypeError):
+    tff.fused_filter_step(args[0].double(), *args[1:], radius=3, **STEP_KW)
+  with pytest.raises(ValueError, match="aligned"):  # 4 bytes off
+    shifted = torch.empty(12 * 16 * 4 + 1, device=cuda)[1:].view(12, 16, 4)
+    tff.fused_filter_step(args[0], shifted, *args[2:], radius=3, **STEP_KW)
+  with pytest.raises(ValueError, match="shape"):
+    tff.fused_filter_step(args[0], args[1][:, :8], *args[2:], radius=3,
+                          **STEP_KW)
+  with pytest.raises(ValueError, match="is on"):
+    tff.fused_filter_step(args[0], args[1].cpu(), *args[2:], radius=3,
+                          **STEP_KW)
+
+
+def test_step_grads_on_card_match_cpu(cuda):
+  """A loss on the heads-in entry's six differentiable outputs on the card:
+  the raw heads, x_prev and P_prev get the CPU plain version's gradients
+  (golden tolerance rtol 5e-4, atol 5e-5); the forward is the kernel's."""
+  args = make_heads(42, 17, 23, extreme=False)
+  rng = np.random.default_rng(4)
+  cots = [torch.from_numpy(rng.normal(size=(17, 23, c)).astype(np.float32))
+          for c in (3, 1, 2, 1, 3, 1)]
+  grads = {}
+  for dev in (cuda, torch.device("cpu")):
+    ts = [a.to(dev).requires_grad_(True) for a in args]
+    before = tff.fused_filter_step.launches
+    out = tff.fused_filter_step(*ts, radius=3, threshold=7.814728,
+                                **STEP_KW)
+    assert tff.fused_filter_step.launches == before + (dev.type == "cuda")
+    assert not out[2].requires_grad
+    diff = [o for i, o in enumerate(out) if i != 2]
+    loss = sum(torch.sum(o * c.to(dev)) for o, c in zip(diff, cots))
+    grads[dev.type] = [g.cpu().numpy() for g in torch.autograd.grad(loss,
+                                                                    ts)]
+  for name, g, want in zip(("raw_flow_head", "raw_coord_head", "x_prev",
+                            "P_prev"), grads["cuda"], grads["cpu"]):
+    assert np.abs(want).max() > 0, name
+    np.testing.assert_allclose(g, want, rtol=5e-4, atol=5e-5, err_msg=name)
+
+
+def _entry_calls(dev):
+  """One call of each C entry, on inputs made once: name -> (wrapper,
+  call)."""
+  heads = [a.to(dev) for a in make_heads(43, 60, 80)]
+  fwk = [a.to(dev) for a in make_inputs(5, 60, 80, 4, True)]
+  x, wt, b, scale, shift = conv_inputs(dev, 15, 20, 256, 256)
+  xc, wc, _, sc, sh = conv_inputs(dev, 60, 80, 256, 512, seed=1)
+  return {
+      "fused_filter_step": (
+          tff.fused_filter_step, lambda: tff.fused_filter_step(
+              *heads, radius=4, threshold=2.365974, **STEP_KW)),
+      "fused_warp_kalman": (
+          tff.fused_warp_kalman, lambda: tff.fused_warp_kalman(
+              *fwk, radius=4, threshold=2.365974)),
+      "conv3x3_same": (tc3.conv3x3_same, lambda: tc3.conv3x3_same(
+          x, wt, b, True, torch.float32)),
+      "conv3x3_gn_chain": (tc3.conv3x3_gn_chain, lambda: tc3.conv3x3_gn_chain(
+          xc, sc, sh, wc, True)),
+  }
+
+
+@pytest.mark.parametrize("entry", ["fused_filter_step", "fused_warp_kalman",
+                                   "conv3x3_same", "conv3x3_gn_chain"])
+def test_entry_captured_and_replayed_equals_eager(cuda, entry):
+  wrapper, call = _entry_calls(cuda)[entry]
+  eager = call()
+  torch.cuda.synchronize()
+  g = torch.cuda.CUDAGraph()
+  before = wrapper.launches
+  with launches.recorded() as record, torch.cuda.graph(
+      g, capture_error_mode="thread_local"):
+    out = call()
+  assert wrapper.launches == before and record == {wrapper: 1}
+  for _ in range(2):
+    g.replay()
+    launches.replayed(record)
+  torch.cuda.synchronize()
+  assert wrapper.launches == before + 2
+  outs = out if isinstance(out, tuple) else (out,)
+  wants = eager if isinstance(eager, tuple) else (eager,)
+  assert all(torch.equal(o, w) for o, w in zip(outs, wants))
+
+
+def _small_configs():
+  default = kfnet.KFNetConfig(
+      scoordnet=scoordnet.SCoordNetConfig(
+          channels=(8, 8, 16, 16, 16, 16), strides=(1, 2, 1, 2, 1, 2),
+          head_channels=16),
+      oflownet=oflownet.OFlowNetConfig(
+          encoder_channels=(8, 8, 16), encoder_strides=(2, 2, 2),
+          search_radius=2, unet_channels=(8, 8, 16)))
+  conv = kfnet.KFNetConfig(
+      scoordnet=scoordnet.SCoordNetConfig(
+          channels=(8, 16, 128, 128), strides=(2, 2, 2, 1),
+          head_channels=128, stem_s2d=1, conv_impl="pallas_fused"),
+      oflownet=oflownet.OFlowNetConfig(
+          encoder_channels=(8, 16, 128, 128), encoder_strides=(2, 2, 2, 1),
+          search_radius=2, stem_s2d=1, conv_impl="pallas_3x3"))
+  return {"default": default, "conv_kernels": conv}
+
+
+K_SMALL = np.asarray([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]], np.float32)
+
+
+def _served(params, cfg, dev, frames, **kw):
+  rl = OnlineRelocalizer(params, cfg, K_SMALL, device=dev, seed=0, **kw)
+  return rl, [rl.tick(f).cpu() for f in frames]
+
+
+@pytest.mark.parametrize("config", ["default", "conv_kernels"])
+def test_graphed_relocaliser_matches_eager_and_counts_under_replay(cuda,
+                                                                   config):
+  cfg = _small_configs()[config]
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  frames = np.random.default_rng(1).integers(0, 256, (5, 48, 64, 3),
+                                             dtype=np.uint8)
+  counters = (tff.fused_filter_step, tc3.conv3x3_same, tc3.conv3x3_gn_chain)
+  before = [c.launches for c in counters]
+  graphed, packed_g = _served(params, cfg, cuda, frames)
+  ran = [c.launches - b for c, b in zip(counters, before)]
+  assert graphed._step is not None  # captured, then replayed
+  eager, packed_e = _served(params, cfg, cuda, frames, graph=False)
+  first = kfnet.kernel_shapes(cfg, (48, 64, 3), first=True)
+  later = kfnet.kernel_shapes(cfg, (48, 64, 3))
+  assert ran == [4] + [len(first[k]) + 4 * len(later[k])
+                       for k in ("conv3x3_same", "conv3x3_gn_chain")]
+  for g, e in zip(packed_g, packed_e):
+    np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=1e-3, atol=1e-3)
+  for g, e in zip(graphed.state, eager.state):
+    np.testing.assert_allclose(g.float().cpu().numpy(),
+                               e.float().cpu().numpy(), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("config", ["default", "conv_kernels"])
+def test_weight_update_between_ticks_reaches_the_replay(cuda, config):
+  cfg = _small_configs()[config]
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  frames = np.random.default_rng(2).integers(0, 256, (4, 48, 64, 3),
+                                             dtype=np.uint8)
+  graphed = OnlineRelocalizer(params, cfg, K_SMALL, device=cuda,
+                              solve_pose=False)
+  eager = OnlineRelocalizer(params, cfg, K_SMALL, device=cuda,
+                            solve_pose=False, graph=False)
+  for f in frames[:3]:
+    graphed.process(f)
+    eager.process(f)
+  step = graphed._step
+  stale = OnlineRelocalizer(  # the carry and weights before the update
+      params, cfg, K_SMALL, device=cuda, solve_pose=False, graph=False)
+  stale._carry = tuple(t.clone() for t in eager.state)
+  stale.tick(frames[3])
+  x_stale = stale.state[0].clone()
+  # the head block's conv (a conv kernel's weights in the conv-kernel
+  # config) and the head, both updated in place between two ticks
+  convs = [p for p in L.tree_leaves(params["scoordnet"]) if p.dim() == 4]
+  gen = torch.Generator(device=cuda).manual_seed(3)
+  with torch.no_grad():
+    for w in convs[-2:]:
+      w.add_(torch.randn(w.shape, generator=gen, device=cuda) * w.std())
+  graphed.process(frames[3])
+  eager.process(frames[3])
+  assert graphed._step is not step  # captured again
+  for g, e in zip(graphed.state, eager.state):
+    np.testing.assert_allclose(g.float().cpu().numpy(),
+                               e.float().cpu().numpy(), rtol=1e-3, atol=1e-3)
+  assert not torch.allclose(graphed.state[0], x_stale, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("config", ["default", "conv_kernels"])
+def test_reset_replays_the_graph_from_the_new_carry(cuda, config):
+  """After reset() the graph is kept: frame 0 of the new track runs
+  first_step eagerly and the next frame replays from that carry, equal to
+  the eager relocaliser reset at the same frame, with no second capture."""
+  cfg = _small_configs()[config]
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  frames = np.random.default_rng(4).integers(0, 256, (6, 48, 64, 3),
+                                             dtype=np.uint8)
+  graphed = OnlineRelocalizer(params, cfg, K_SMALL, device=cuda,
+                              solve_pose=False)
+  eager = OnlineRelocalizer(params, cfg, K_SMALL, device=cuda,
+                            solve_pose=False, graph=False)
+  for rl in (graphed, eager):
+    for f in frames[:3]:
+      rl.process(f)
+  step = graphed._step
+  before = tff.fused_filter_step.launches
+  packed = []
+  for rl in (graphed, eager):
+    rl.reset()
+    assert rl.state is None
+    packed.append([rl.tick(f).cpu() for f in frames[3:]])
+  assert graphed._step is step  # replayed, not captured again
+  assert tff.fused_filter_step.launches == before + 2 * 2
+  for g, e in zip(*packed):
+    np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=1e-3, atol=1e-3)
+  for g, e in zip(graphed.state, eager.state):
+    np.testing.assert_allclose(g.float().cpu().numpy(),
+                               e.float().cpu().numpy(), rtol=1e-3, atol=1e-3)

@@ -40,6 +40,28 @@ def test_no_forbidden_imports(path):
   assert not bad, f"{path} imports {bad}"
 
 
+def _imported_modules(path):
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      yield from (a.name for a in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+      yield node.module
+      yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def test_kernels_and_core_import_no_models():
+  # the layers, bottom up: core, kernels, models; the heads' output steps
+  # the kernels need live in core (core/heads.py)
+  pkg = ROOT / "kfnet_tpu_torch"
+  for path in sorted((pkg / "kernels").glob("*.py")) + sorted(
+      (pkg / "core").glob("*.py")):
+    above = [m for m in _imported_modules(path)
+             if m.startswith(("kfnet_tpu_torch.models",
+                              "kfnet_tpu_torch.eval"))]
+    assert not above, f"{path.relative_to(ROOT)} imports {above}"
+
+
 def test_package_import_leaves_jax_out():
   code = ("import sys, kfnet_tpu_torch.eval.online, kfnet_tpu_torch.convert;"
           "import kfnet_tpu_torch.kernels.fused_filter;"

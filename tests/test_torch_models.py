@@ -240,3 +240,78 @@ def test_init_needs_a_device_without_cuda(monkeypatch):
     tkfnet.init(0, port_config(jax_cfg()), tc.IMG)
   params = tkfnet.init(0, port_config(jax_cfg()), tc.IMG, device="cpu")
   assert params["scoordnet"][0][0]["w"].device.type == "cpu"
+
+
+def test_output_steps_split_decode_and_apply():
+  # decode and apply are the output steps applied to the raw heads, the
+  # single place the fused kernel's plain version takes them from
+  jcfg = jax_cfg()
+  _, tparams = both_params(jcfg, 13)
+  tcfg = port_config(jcfg)
+  imgs = t(tc.random_images(2, seed=13))
+  sc = dataclasses.replace(tcfg.scoordnet, coord_scale=1.5,
+                           coord_offset=(0.5, -1.0, 2.0))
+  raw = tscoord.apply_raw(tparams["scoordnet"], sc, imgs[0])
+  assert raw.shape == (6, 8, 4) and raw.is_contiguous()
+  for g, w in zip(tscoord.apply(tparams["scoordnet"], sc, imgs[0]),
+                  tscoord.output_step(raw, 1.5, (0.5, -1.0, 2.0))):
+    assert torch.equal(g, w)
+  feats = [tkfnet.encode(tparams, tcfg, im) for im in imgs]
+  cv = tcv.cost_volume(feats[0], feats[1], tcfg.oflownet.search_radius)
+  raw = toflow.decode_raw(tparams["oflownet"], tcfg.oflownet, cv)
+  assert raw.shape == (6, 8, 3) and raw.is_contiguous()
+  for g, w in zip(toflow.decode(tparams["oflownet"], tcfg.oflownet, cv),
+                  toflow.output_step(raw, tcfg.oflownet.search_radius)):
+    assert torch.equal(g, w)
+
+
+def test_kernel_path_equals_composition_on_cpu():
+  # on the CPU the kernel path (the heads-in entry's plain version) and the
+  # composition compute the same operations in the same order: the same
+  # bits for the posterior, the mask and aux's maps
+  jcfg = jax_cfg()
+  _, tparams = both_params(jcfg, 14)
+  imgs = t(tc.random_images(3, seed=14))
+  outs = {}
+  for fused in (True, False):
+    tcfg = port_config(jcfg, fused)
+    x, P, feat = tkfnet.first_step(tparams, tcfg, imgs[0])
+    for img in imgs[1:]:
+      x, P, feat, aux = tkfnet.filter_step(tparams, tcfg, x, P, feat, img)
+    outs[fused] = dict(aux, x=x, P=P)
+  for k in ("x", "P", "consistent", "flow", "W", "z", "V"):
+    assert torch.equal(outs[True][k], outs[False][k]), k
+
+
+def test_filter_step_batched_matches_single_and_jax_vmap():
+  """filter_step on (B, ...) inputs (the kernel path: one fused call for
+  the B maps) equals B single calls (single-module tolerance: a batch runs
+  the same convolutions over more frames) and the JAX package's filter_step
+  under vmap (the golden tolerance)."""
+  jcfg = jax_cfg()
+  jparams, tparams = both_params(jcfg, 15)
+  tcfg = port_config(jcfg)
+  prev = tc.random_images(3, seed=15)
+  cur = tc.random_images(3, seed=16)
+  jfirst = jax.vmap(lambda im: jkfnet.first_step(jparams, jcfg, im))(prev)
+  jout = jax.vmap(lambda x, P, f, im: jkfnet.filter_step(
+      jparams, jcfg, x, P, f, im))(*jfirst, cur)
+  tfirst = tkfnet.first_step(tparams, tcfg, t(prev))
+  tout = tkfnet.filter_step(tparams, tcfg, *tfirst, t(cur))
+  assert tout[0].shape == (3, 6, 8, 3) and tout[1].shape == (3, 6, 8, 1)
+  for i in range(3):
+    single = tkfnet.filter_step(tparams, tcfg, *(a[i] for a in tfirst),
+                                t(cur)[i])
+    for g, w in zip(tout[:3], single[:3]):
+      close(g[i], w.detach().numpy())
+    for k in ("flow", "W", "z", "V"):
+      close(tout[3][k][i], single[3][k].detach().numpy())
+    np.testing.assert_array_equal(tout[3]["consistent"][i].numpy(),
+                                  single[3]["consistent"].numpy())
+  close(tout[0], jout[0], rtol=5e-4, atol=5e-5)
+  close(tout[1], jout[1], rtol=5e-4, atol=5e-5)
+  close(tout[2], jout[2])
+  for k in ("flow", "W", "z", "V"):
+    close(tout[3][k], jout[3][k])
+  np.testing.assert_array_equal(tout[3]["consistent"].numpy(),
+                                np.asarray(jout[3]["consistent"]))

@@ -86,3 +86,17 @@ def test_raises_without_device_and_cuda(setup, monkeypatch):
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     OnlineRelocalizer(tparams, port_config(jcfg), K)
+
+
+def test_graph_needs_a_cuda_device(setup):
+  # the CPU path is eager: graph=True on the CPU raises, the default is off
+  jcfg, _, tparams = setup
+  with pytest.raises(ValueError, match="CUDA"):
+    OnlineRelocalizer(tparams, port_config(jcfg), K, device="cpu",
+                      graph=True)
+  reloc = OnlineRelocalizer(tparams, port_config(jcfg), K, device="cpu",
+                            solve_pose=False)
+  imgs = np.asarray(tc.random_images(2, seed=9))
+  for img in imgs:
+    reloc.process(img)
+  assert reloc._step is None and reloc.state[0].shape == (6, 8, 3)
