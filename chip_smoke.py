@@ -67,6 +67,33 @@ Phases, one line each, with their seconds:
      against the eager filter step, as in phase 5;
   7. pose on known data: 4800 correspondences, 30% outliers, solved on the
      card to within 1 cm and 0.1°;
+  7b. sequence: the sequence path (filter/sequence.py) in the default
+     config on 16 uint8 640x480 frames: run_filter (each filter step a
+     CUDA graph replay), the chunked stream of host frames at chunk 4
+     (chunks 5/4/4/3, a ragged tail, uploads on a copy stream) and the run
+     resumed from the carry after frame 7, each against the eager
+     run_filter_python_loop on x and P at rtol = atol = TOL_PATH (bit-equal
+     recorded), the fused update launched once a filter-step frame (15,
+     counted under replay); run_filter_batched on two such sequences
+     (B = 2), one fused launch a step for both maps, each sequence of the
+     batch against its own eager loop: in bf16 recorded (a batch of two
+     takes other conv and reduction orders than one frame, and a flipped
+     bf16 rounding spreads through the random-weight nets), with frame 0's
+     z and V within BOUNDS of the single frame's, and the same in float32
+     (compute_dtype of both nets, same widths and weights) held at
+     TOL_PATH; the conv-kernel config on 8 frames held the same way
+     (graphed, chunked, resumed; a batch runs PyTorch's convs, the kernels
+     take one frame), its launches kfnet.kernel_shapes' count for frame 0
+     plus 7 filter-step frames; the batched pose solve on 8 frames of
+     known poses (4800 points, 30% outliers each): every frame within 1 cm
+     and 0.1°, and equal to each frame's solve_with_indices on the same
+     index sets at POSE_RTOL/POSE_ATOL on T_wc (bit-equal recorded), the
+     batched solve's time against 8 single solves; then, in both configs,
+     eval/benchmark.py's filter_fps (32 float frames), e2e_pose_fps
+     (filter + batched solve), streaming_fps_device (a 96-frame stream at
+     chunk 32), the analytic GFLOP a frame, the MFU and the card's bf16
+     peak (eval/flops.py; null for a card it does not know), beside the
+     card's name and power limit;
   8. times with CUDA events: process() per frame in both configurations,
      graphed and eager, and the filter step alone (solve_pose=False): its
      host ms a frame (the enqueue) and its ms a frame, graphed and eager,
@@ -136,6 +163,10 @@ GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5  # fused kernel's gradients: golden tols
 # against its plain version on its own inputs instead (check_calls).
 BOUNDS = {"z": 0.05, "flow": 0.07, "V": 0.1, "W": 0.1}
 IMG = (480, 640, 3)
+SEQ_T, SEQ_T_CONV = 16, 8   # frames of the sequence phase, per config
+# the batched pose solve against each frame's solve on the same indices,
+# T_wc: rtol, and an atol for its entries near 0
+POSE_RTOL, POSE_ATOL = 1e-4, 1e-6
 FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "tensorstore", "cv2")
 
 
@@ -535,6 +566,86 @@ def time_calls_alone(conv_tiles, calls):
   return out
 
 
+def close_to(got, want):
+  """(bit-equal, largest |difference| of x and of P, within TOL_PATH) of
+  two (xs, Ps) results."""
+  import torch
+  (gx, gP), (wx, wP) = got, want
+  return {"bit_equal": bool(torch.equal(gx, wx) and torch.equal(gP, wP)),
+          "x_max_abs": (gx - wx).abs().max().item(),
+          "P_max_abs": (gP - wP).abs().max().item(),
+          "held": bool(torch.allclose(gx, wx, rtol=TOL_PATH, atol=TOL_PATH)
+                       and torch.allclose(gP, wP, rtol=TOL_PATH,
+                                          atol=TOL_PATH))}
+
+
+def counted(wrappers, fn):
+  """``fn()``'s result and the launches of each wrapper it made (counted
+  under replay), the counts set to 0 just before."""
+  import torch
+  for w in wrappers.values():
+    w.launches = 0
+  out = fn()
+  torch.cuda.synchronize()
+  return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def sequence_forms(sequence, params, c, frames, resume_at, chunk, wrappers,
+                   dev):
+  """The graphed run, the chunked stream (host uint8 frames) and the run
+  resumed from a carry after frame ``resume_at - 1``, each against the
+  eager loop on x and P, with each one's kernel launches."""
+  import torch
+  dev_frames = torch.from_numpy(frames).to(dev)
+  ref = sequence.run_filter_python_loop(params, c, dev_frames)
+
+  def chunked():
+    outs = list(sequence.run_filter_chunked_arrays(params, c, list(frames),
+                                                   chunk_size=chunk))
+    return ((torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])),
+            [o[0].shape[0] for o in outs])
+
+  def resumed():
+    xa, Pa, carry = sequence.run_filter(params, c, dev_frames[:resume_at])
+    xb, Pb, _ = sequence.run_filter(params, c, dev_frames[resume_at:],
+                                    carry=carry)
+    return torch.cat([xa, xb]), torch.cat([Pa, Pb])
+
+  forms = {}
+  out, n = counted(wrappers, lambda: sequence.run_filter(
+      params, c, dev_frames)[:2])
+  forms["graphed"] = dict(close_to(out, ref), launches=n)
+  (out, sizes), n = counted(wrappers, chunked)
+  forms["chunked"] = dict(close_to(out, ref), launches=n, chunks=sizes)
+  out, n = counted(wrappers, resumed)
+  forms["resumed"] = dict(close_to(out, ref), launches=n)
+  return forms, ref
+
+
+def known_poses(rng, T, n, K):
+  """T frames of n correspondences of known poses (camera-to-world), 0.5
+  px pixel noise and 30% outliers (2 m world noise): (uv, X, var, T_wc)."""
+  import numpy as np
+  uvs, Xs, poses = [], [], []
+  for _ in range(T):
+    R_wc = rodrigues(rng.normal(size=3) * 0.3)
+    t_wc = rng.normal(size=3)
+    pc = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.0, 1.0, n),
+                   rng.uniform(1.0, 5.0, n)], -1)
+    X = pc @ R_wc.T + t_wc
+    uv = pc[:, :2] / pc[:, 2:] * K[0, 0] + K[:2, 2]
+    uv += rng.normal(size=uv.shape) * 0.5
+    out = rng.choice(n, int(0.3 * n), replace=False)
+    X[out] += rng.normal(size=(len(out), 3)) * 2.0
+    T_wc = np.eye(4)
+    T_wc[:3, :3], T_wc[:3, 3] = R_wc, t_wc
+    uvs.append(uv)
+    Xs.append(X)
+    poses.append(T_wc)
+  return (np.stack(uvs), np.stack(Xs), rng.uniform(0.5, 2.0, (T, n)),
+          np.stack(poses))
+
+
 def main():
   t_all = time.time()
   import numpy as np
@@ -545,7 +656,9 @@ def main():
     return 1
   import kfnet_tpu_torch
   from kfnet_tpu_torch.core import geometry
+  from kfnet_tpu_torch.eval import benchmark, flops
   from kfnet_tpu_torch.eval.online import OnlineRelocalizer
+  from kfnet_tpu_torch.filter import sequence
   from kfnet_tpu_torch.kernels import _build
   from kfnet_tpu_torch.kernels import conv3x3 as c3
   from kfnet_tpu_torch.kernels import fused_filter as ff
@@ -826,6 +939,130 @@ def main():
       r_err_deg=rerr, inlier_ratio=sol["inlier_ratio"].item())
   if not (terr < 0.01 and rerr < 0.1):
     raise AssertionError(f"pose off: {terr} m, {rerr} deg")
+
+  # 7b. the sequence path
+  t0 = time.time()
+  wrappers = {"fused_warp_kalman": ff.fused_filter_step,
+              "conv3x3_same": c3.conv3x3_same,
+              "conv3x3_gn_chain": c3.conv3x3_gn_chain}
+  srng = np.random.default_rng(4)
+  seq_a, seq_b = (srng.integers(0, 256, (SEQ_T,) + IMG, dtype=np.uint8)
+                  for _ in range(2))
+  forms, ref_a = sequence_forms(sequence, params, cfg, seq_a, 8, 4, wrappers,
+                                dev)
+  ref_b = sequence.run_filter_python_loop(params, cfg,
+                                          torch.from_numpy(seq_b).to(dev))
+  pair = torch.from_numpy(np.stack([seq_a, seq_b], 1)).to(dev)
+  (xs_b, Ps_b), n_b = counted(wrappers, lambda: sequence.run_filter_batched(
+      params, cfg, pair))
+  # a batch of two takes other conv and reduction orders than one frame,
+  # and in bf16 a flipped rounding spreads through the random-weight nets
+  # (frame 0's z already 1.6% of its largest value off): the bf16 batch
+  # is recorded, its frame 0 held at BOUNDS, and the same sequences in
+  # float32 (same widths and weights) held at TOL_PATH
+  cfg32 = dataclasses.replace(
+      cfg, scoordnet=dataclasses.replace(cfg.scoordnet,
+                                         compute_dtype="float32"),
+      oflownet=dataclasses.replace(cfg.oflownet, compute_dtype="float32"))
+  xs32, Ps32 = sequence.run_filter_batched(params, cfg32, pair)
+  forms["batched_B2"] = {
+      "launches": n_b,
+      "bf16": {"vs_a": close_to((xs_b[:, 0], Ps_b[:, 0]), ref_a),
+               "vs_b": close_to((xs_b[:, 1], Ps_b[:, 1]), ref_b),
+               "frame0_vs_alone": {
+                   "z": deviation(xs_b[0, 0], ref_a[0][0], False),
+                   "V": deviation(Ps_b[0, 0], ref_a[1][0], True)}},
+      "float32": {
+          "vs_" + k: close_to((xs32[:, i], Ps32[:, i]),
+                              sequence.run_filter_python_loop(
+                                  params, cfg32, pair[:, i]))
+          for i, k in enumerate("ab")}}
+  conv_forms, _ = sequence_forms(sequence, params, conv_cfg,
+                                 seq_a[:SEQ_T_CONV], 4, 4, wrappers, dev)
+  seq_expected = {
+      "default": {"fused_warp_kalman": SEQ_T - 1, "conv3x3_same": 0,
+                  "conv3x3_gn_chain": 0},
+      "conv_kernels": {
+          "fused_warp_kalman": SEQ_T_CONV - 1,
+          **{k: len(first[k]) + (SEQ_T_CONV - 1) * len(later[k])
+             for k in ("conv3x3_same", "conv3x3_gn_chain")}}}
+  # the batched solve on known poses, and against each frame's solve on
+  # the same index sets
+  puv, pX, pvar, pT = known_poses(np.random.default_rng(5), 8, 4800, K)
+  rc = ransac.RansacConfig()
+  pgen = torch.Generator(device=dev).manual_seed(0)
+  pose_in = (f32(puv), f32(pX), f32(pvar),
+             torch.ones(pvar.shape, dtype=torch.bool, device=dev))
+  uv_k, X_k, w_k = ransac.select_confident(*pose_in, rc.top_k)
+  idx = ransac.sample_hypotheses(w_k, rc.num_hypotheses, rc.sample_size, pgen)
+  batched = ransac.solve_with_indices(uv_k, X_k, w_k, K_dev, idx, rc)
+  single = torch.stack([ransac.solve_with_indices(
+      uv_k[f], X_k[f], w_k[f], K_dev, idx[f], rc)["T_wc"] for f in range(8)])
+  T_true = f32(pT)
+  pose_check = {
+      "t_err_m": geometry.translation_error(batched["T_wc"], T_true).tolist(),
+      "r_err_deg": geometry.rotation_error_deg(batched["T_wc"],
+                                               T_true).tolist(),
+      "vs_single_bit_equal": bool(torch.equal(batched["T_wc"], single)),
+      "vs_single_max_abs": (batched["T_wc"] - single).abs().max().item(),
+      "vs_single_held": bool(torch.allclose(batched["T_wc"], single,
+                                            rtol=POSE_RTOL, atol=POSE_ATOL)),
+      "inlier_ratio": batched["inlier_ratio"].tolist(),
+      # CUDA events around the enqueue: the host's pace
+      "ms_batched_8_frames": cuda_ms(lambda: ransac.solve_pnp_ransac(
+          *pose_in, K_dev, pgen), 3),
+      "ms_single_8_frames": cuda_ms(lambda: [ransac.solve_pnp_ransac(
+          *(a[f] for a in pose_in), K_dev, pgen) for f in range(8)], 3)}
+  # the bench's figures (eval/benchmark.py's protocols): 32 float frames
+  # of the bench, a 96-frame stream of them on the card
+  fimg = torch.from_numpy(np.random.default_rng(0).uniform(
+      0, 1, (32,) + IMG).astype(np.float32)).to(dev)
+  K_bench = np.array([[585.0, 0, 319.5], [0, 585.0, 239.5], [0, 0, 1]],
+                     np.float32)
+  peak = flops.peak_flops(dev)
+  figures = {}
+  for name, c in (("default", cfg), ("conv_kernels", conv_cfg)):
+    fps = benchmark.filter_fps(c, params, fimg)
+    fl = flops.filter_step_flops(c, *IMG[:2])
+    figures[name] = {
+        "filter_fps": fps,
+        "e2e_pose_fps": benchmark.e2e_pose_fps(c, params, fimg, K_bench),
+        "streaming_fps_device": benchmark.streaming_fps(
+            c, params, list(torch.cat([fimg] * 3))),
+        "gflops_per_frame": fl / 1e9,
+        "mfu": fl * fps / peak if peak else None, "peak_flops": peak}
+  print(smi, flush=True)
+  say("sequence", t0, gpu=gpu, nvidia_smi=smi, frames=SEQ_T,
+      frames_conv_kernels=SEQ_T_CONV, tol=TOL_PATH,
+      default=forms, conv_kernels=conv_forms, launches_expected=seq_expected,
+      batched_pose=pose_check, pose_tol={"rtol": POSE_RTOL, "atol": POSE_ATOL},
+      figures=figures)
+  for name, fs in (("default", forms), ("conv_kernels", conv_forms)):
+    for form, res in fs.items():
+      checks = (list(res["float32"].values()) if form == "batched_B2"
+                else [res])
+      if not all(r["held"] for r in checks):
+        raise AssertionError(f"{name} {form} off the eager loop: {res}")
+      want = seq_expected[name]
+      if form == "batched_B2":  # one fused launch a step for both maps
+        want = dict(want, fused_warp_kalman=SEQ_T - 1)
+      if res["launches"] != want:
+        raise AssertionError(f"{name} {form} launches {res['launches']}, "
+                             f"expected {want}")
+  frame0 = forms["batched_B2"]["bf16"]["frame0_vs_alone"]
+  if not all(frame0[k]["max_rel"] <= BOUNDS[k] for k in frame0):
+    raise AssertionError(f"bf16 batch's frame 0 off the single frame's: "
+                         f"{frame0}")
+  if forms["chunked"]["chunks"] != [5, 4, 4, 3]:
+    raise AssertionError(f"chunks {forms['chunked']['chunks']}")
+  if not (max(pose_check["t_err_m"]) < 0.01
+          and max(pose_check["r_err_deg"]) < 0.1):
+    raise AssertionError(f"batched pose off: {pose_check}")
+  if not pose_check["vs_single_held"]:
+    raise AssertionError(f"batched pose differs from the per-frame solves: "
+                         f"{pose_check}")
+  if not all(np.isfinite(v["filter_fps"]) for v in figures.values()):
+    raise AssertionError(f"figures: {figures}")
 
   # 8. times
   t0 = time.time()

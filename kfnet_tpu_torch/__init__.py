@@ -10,9 +10,12 @@ Public functions keep the JAX package's layouts: (h, w, C) maps and
 (..., H, W, 3) NHWC frames. Inside, the nets run NCHW-shaped tensors in
 channels-last memory, so the layout change at the boundary is a view.
 
-Entry points (``models.kfnet.init``, ``eval.online.OnlineRelocalizer``)
-run on ``cuda`` unless the caller passes ``device="cpu"``. Functions on
-tensors run where their inputs live.
+Entry points (``models.kfnet.init``, ``eval.online.OnlineRelocalizer``,
+``eval.benchmark.run``, ``python -m kfnet_tpu_torch.bench``) run on
+``cuda`` unless the caller passes ``device="cpu"``. Functions on tensors
+run where their inputs live; the sequence and eval functions
+(``filter.sequence``, ``eval.eval_sequence``) where the params live,
+unless given a ``device``.
 """
 
 from __future__ import annotations

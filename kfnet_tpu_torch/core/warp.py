@@ -22,15 +22,17 @@ def base_grid(height: int, width: int, dtype=torch.float32,
 
 
 def bilinear_sample(img: torch.Tensor, pos: torch.Tensor):
-  """Bilinearly sample (H, W, C) ``img`` at (..., 2) (u, v) positions.
+  """Bilinearly sample (..., H, W, C) ``img`` at (..., 2) (u, v) positions.
 
+  ``img`` may carry leading batch dims B; then ``pos`` is (*B, ..., 2) and
+  map b is sampled at ``pos[b]`` (the JAX package's ``vmap`` over maps).
   Valid iff the sample point lies in [0, w-1]x[0, h-1], inclusive; the
   corners are clamped to the map, so at u == w-1 exactly the x1 corner
   has zero weight and the sample is still exact.
 
   Returns (values (..., C) zero where invalid, valid (..., 1) bool).
   """
-  h, w, c = img.shape
+  h, w, c = img.shape[-3:]
   u = pos[..., 0]
   v = pos[..., 1]
   u0 = torch.floor(u)
@@ -44,10 +46,11 @@ def bilinear_sample(img: torch.Tensor, pos: torch.Tensor):
   y0 = torch.clamp(v0.to(torch.int64), 0, h - 1)
   y1 = torch.clamp(y0 + 1, 0, h - 1)
 
-  flat = img.reshape(h * w, c)
+  flat = img.reshape(-1, h * w, c)  # one row of pixels per map
 
   def gather(yy, xx):
-    return flat[yy * w + xx]
+    idx = (yy * w + xx).reshape(flat.shape[0], -1, 1).expand(-1, -1, c)
+    return torch.gather(flat, 1, idx).reshape(yy.shape + (c,))
 
   w00 = ((1 - du) * (1 - dv))[..., None]
   w01 = (du * (1 - dv))[..., None]
@@ -61,10 +64,11 @@ def bilinear_sample(img: torch.Tensor, pos: torch.Tensor):
 
 
 def warp_by_flow(prev: torch.Tensor, flow: torch.Tensor):
-  """Warp an (H, W, C) previous-frame map by (H, W, 2) backward flow.
+  """Warp a ([B,] H, W, C) previous-frame map by ([B,] H, W, 2) backward
+  flow, map by map.
 
-  Returns (warped (H, W, C), valid (H, W, 1) bool)."""
-  h, w, _ = prev.shape
+  Returns (warped ([B,] H, W, C), valid ([B,] H, W, 1) bool)."""
+  h, w, _ = prev.shape[-3:]
   pos = base_grid(h, w, dtype=flow.dtype, device=flow.device) + flow
   return bilinear_sample(prev, pos)
 
@@ -72,9 +76,11 @@ def warp_by_flow(prev: torch.Tensor, flow: torch.Tensor):
 def warp_state_cov(x_prev: torch.Tensor, P_prev: torch.Tensor,
                    flow: torch.Tensor, W_noise: torch.Tensor,
                    invalid_cov: float = 1e8):
-  """x⁻ = warp(x);  P⁻ = warp(P) + W, and ``invalid_cov`` out of bounds.
+  """x⁻ = warp(x);  P⁻ = warp(P) + W, and ``invalid_cov`` out of bounds,
+  for one map or a (B, ...) batch of maps.
 
-  Returns x_prior (H, W, 3), P_prior (H, W, 1), valid (H, W, 1) bool."""
+  Returns x_prior ([B,] H, W, 3), P_prior ([B,] H, W, 1), valid ([B,] H,
+  W, 1) bool."""
   joint = torch.cat([x_prev, P_prev], dim=-1)
   warped, valid = warp_by_flow(joint, flow)
   x_prior = warped[..., :3]

@@ -9,9 +9,10 @@ One frame is one filter step plus one PnP-RANSAC solve, all enqueued on
 the device, and ONE device->host copy of 19 packed floats:
 [consistent_frac, T_wc (16), num_inliers, inlier_ratio].
 
-On ``cuda`` the filter step and consistent_frac run as one CUDA graph, the
-port's counterpart of the JAX package's jitted ``_step`` (minus the pose
-solve, which runs eagerly after it): frame 0 runs ``first_step`` eagerly;
+On ``cuda`` the filter step and consistent_frac run as one CUDA graph
+(``filter.sequence.GraphedStep``, which the sequence runners replay too),
+the port's counterpart of the JAX package's jitted ``_step`` (minus the
+pose solve, which runs eagerly after it): frame 0 runs ``first_step`` eagerly;
 the first filter-step frame runs the step eagerly on a side stream (the
 warm-up, which is that frame's result) and then captures it; every later
 frame copies itself into the graph's input buffer and replays it. The
@@ -28,76 +29,14 @@ import numpy as np
 import torch
 
 import kfnet_tpu_torch
-from kfnet_tpu_torch.kernels import launches
+from kfnet_tpu_torch.filter.sequence import GraphedStep
 from kfnet_tpu_torch.models import kfnet
 from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.pose import ransac
 
 
-class _GraphedStep:
-  """The filter step and consistent_frac of one frame as one CUDA graph
-  over static buffers: the carry (x, P, features) and the uploaded frame.
-  A replay reads them and writes the new carry back into the carry's
-  buffers, so the next replay finds it there.
-
-  The graph holds the addresses of the weights and of the conv kernels'
-  prepared weight layouts, so it is valid while no held weight has been
-  updated in place (``fits``); the relocaliser captures it again when one
-  has. A capture that fails raises."""
-
-  def __init__(self, params, config, carry, frame):
-    self._params, self._config = params, config
-    self._leaves = L.tree_leaves(params)
-    self._weights = self._weight_state()
-    self.carry = tuple(t.clone() for t in carry)
-    self.frame = frame.clone()
-    dev = frame.device
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):  # warm-up: this frame's step, eagerly
-      self.first_frac = self._body()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    self.graph = torch.cuda.CUDAGraph()
-    # thread_local: the capture refuses unsafe CUDA calls (a sync, a
-    # pageable copy) made by this thread, which would break the graph,
-    # while calls from other threads of a server (pinning the next frame,
-    # say) cannot invalidate it
-    with launches.recorded() as self.recorded, torch.cuda.graph(
-        self.graph, capture_error_mode="thread_local"):
-      self.frac = self._body()
-
-  def _weight_state(self):
-    return tuple((t._version, t.data_ptr()) for t in self._leaves)
-
-  def _body(self):
-    x, P, feat = self.carry
-    image = kfnet.preprocess_images(self._config, self.frame)
-    x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config, x, P,
-                                           feat, image)
-    for buf, new in zip(self.carry, (x1, P1, feat1)):
-      buf.copy_(new)
-    return torch.mean(aux["consistent"].to(torch.float32)).reshape(1)
-
-  def fits(self, frame, carry) -> bool:
-    """Whether a replay computes this frame's step from ``carry``: same
-    frame and carry shapes and types, and no held weight updated in place
-    or replaced since capture."""
-    return (frame.shape == self.frame.shape and
-            frame.dtype == self.frame.dtype and
-            all(a.shape == b.shape and a.dtype == b.dtype
-                for a, b in zip(carry, self.carry)) and
-            self._weight_state() == self._weights)
-
-  def replay(self, frame, carry) -> torch.Tensor:
-    """This frame's step from ``carry``: copied into the carry's buffers
-    first unless it is already there (it is after the graph's own step)."""
-    if carry is not self.carry:
-      for buf, new in zip(self.carry, carry):
-        buf.copy_(new)
-    self.frame.copy_(frame, non_blocking=True)
-    self.graph.replay()
-    launches.replayed(self.recorded)
-    return self.frac
+def _consistent_frac(aux) -> torch.Tensor:
+  return torch.mean(aux["consistent"].to(torch.float32)).reshape(1)
 
 
 class OnlineRelocalizer:
@@ -154,14 +93,14 @@ class OnlineRelocalizer:
     """consistent_frac of this frame's filter step, replayed (or, on the
     first frame after a capture, from the warm-up)."""
     step = self._step
-    if step is not None and step.fits(frame, self._carry):
+    if step is not None and step.fits(self._params, frame, self._carry):
       frac = step.replay(frame, self._carry)
     else:
       self._step = None  # free the old graph's memory first
-      step = self._step = _GraphedStep(
+      step = self._step = GraphedStep(
           self._params, self._config, self._carry,
-          frame.to(self.device, non_blocking=True))
-      frac = step.first_frac
+          frame.to(self.device, non_blocking=True), _consistent_frac)
+      frac = step.first
     self._carry = step.carry
     return frac
 
@@ -185,7 +124,7 @@ class OnlineRelocalizer:
       x, P, feat = self._carry
       x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config, x,
                                              P, feat, image)
-      frac = torch.mean(aux["consistent"].to(torch.float32)).reshape(1)
+      frac = _consistent_frac(aux)
       self._carry = (x1, P1, feat1)
     self._frames += 1
     parts = [frac]

@@ -1,0 +1,381 @@
+"""Sequence-level recursive filtering (port of
+``kfnet_tpu/filter/sequence.py``).
+
+The JAX package runs a sequence as one ``lax.scan`` whose carry (x, P,
+features) never leaves the device. Here a sequence is a loop over frames
+with the same carry. On ``cuda`` each filter step is one CUDA graph
+(``GraphedStep``), the counterpart of the jitted ``run_filter_jit`` and
+``run_filter_first_jit``: frame 0 runs ``first_step`` eagerly, the first
+filter-step frame warms up eagerly on a side stream (that frame's result)
+and captures the step, and every later frame copies itself into the
+graph's frame buffer and replays it. The graph is kept per (config, frame
+shape and type, device, ``return_aux``) and replayed by later calls with
+the same weights (the JAX package's compile cache); a call with other
+weights, or after an in-place weight update, captures again. A capture
+synchronises the device once. ``graph=False`` runs every step eagerly; the
+CPU always does.
+
+Every function runs on ``device`` when one is given, else on the device of
+the params it is given; frames are moved there. Nothing moves to the CPU
+on its own.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+import kfnet_tpu_torch
+from kfnet_tpu_torch.kernels import launches
+from kfnet_tpu_torch.models import kfnet
+from kfnet_tpu_torch.nn import layers as L
+
+
+class GraphedStep:
+  """One filter step as one CUDA graph over static buffers: the carry (x,
+  P, features) and the frame. A replay reads them and writes the new carry
+  back into the carry's buffers, so the next replay finds it there.
+  ``outputs(aux)`` picks what else the step gives (the graph's static
+  outputs, overwritten by every replay); ``first`` is the warm-up's, the
+  capturing frame's result.
+
+  The graph holds the addresses of the weights and of the conv kernels'
+  prepared weight layouts, so it is valid while no held weight has been
+  updated in place or replaced (``fits``). A capture that fails raises."""
+
+  def __init__(self, params, config, carry, frame, outputs):
+    self._params, self._config, self._outputs = params, config, outputs
+    self._leaves = L.tree_leaves(params)
+    self._weights = self._weight_state()
+    self.carry = tuple(t.clone() for t in carry)
+    self.frame = frame.clone()
+    dev = frame.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm-up: this frame's step, eagerly
+      self.first = self._body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    self.graph = torch.cuda.CUDAGraph()
+    # thread_local: the capture refuses unsafe CUDA calls (a sync, a
+    # pageable copy) made by this thread, which would break the graph,
+    # while calls from other threads of a server (pinning the next frame,
+    # say) cannot invalidate it
+    with launches.recorded() as self.recorded, torch.cuda.graph(
+        self.graph, capture_error_mode="thread_local"):
+      self.out = self._body()
+
+  def _weight_state(self):
+    return tuple((t._version, t.data_ptr()) for t in self._leaves)
+
+  def _body(self):
+    x, P, feat = self.carry
+    image = kfnet.preprocess_images(self._config, self.frame)
+    x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config, x, P,
+                                           feat, image)
+    for buf, new in zip(self.carry, (x1, P1, feat1)):
+      buf.copy_(new)
+    return self._outputs(aux)
+
+  def fits(self, params, frame, carry) -> bool:
+    """Whether a replay computes this frame's step from ``carry`` with
+    ``params``: the captured params object, same frame and carry shapes and
+    types, and no held weight updated in place or replaced since capture."""
+    return (params is self._params and
+            frame.shape == self.frame.shape and
+            frame.dtype == self.frame.dtype and
+            all(a.shape == b.shape and a.dtype == b.dtype
+                for a, b in zip(carry, self.carry)) and
+            self._weight_state() == self._weights)
+
+  def replay(self, frame, carry):
+    """This frame's step from ``carry``: copied into the carry's buffers
+    first unless it is already there (it is after the graph's own step)."""
+    if carry is not self.carry:
+      for buf, new in zip(self.carry, carry):
+        buf.copy_(new)
+    self.frame.copy_(frame, non_blocking=True)
+    self.graph.replay()
+    launches.replayed(self.recorded)
+    return self.out
+
+
+# The captured steps of run_filter and its forms, one per key of _graph_key.
+_graphs: dict = {}
+
+
+def _all_aux(aux):
+  return aux
+
+
+def _no_aux(aux):
+  return {}
+
+
+def _graph_key(config, frame, return_aux):
+  return (config, tuple(frame.shape), frame.dtype, frame.device, return_aux)
+
+
+def _captured_step(params, config, carry, frame, return_aux):
+  """(step, its outputs for this frame): the kept graph replayed when it
+  fits, else a new capture (whose warm-up is this frame's step)."""
+  key = _graph_key(config, frame, return_aux)
+  step = _graphs.get(key)
+  if step is not None and step.fits(params, frame, carry):
+    return step, step.replay(frame, carry)
+  _graphs.pop(key, None)  # free the old graph's memory first
+  step = _graphs[key] = GraphedStep(params, config, carry, frame,
+                                    _all_aux if return_aux else _no_aux)
+  return step, step.first
+
+
+def device_of(params, device) -> torch.device:
+  """``device`` when given (``resolve_device``), else the params'."""
+  if device is not None:
+    return kfnet_tpu_torch.resolve_device(device)
+  return L.tree_leaves(params)[0].device
+
+
+def _use_graph(device: torch.device, graph: bool | None) -> bool:
+  if graph is None:
+    return device.type == "cuda"
+  if graph and device.type != "cuda":
+    raise ValueError(f"graph=True needs a CUDA device, got {device}")
+  return graph
+
+
+def frames_to_device(images, device: torch.device) -> torch.Tensor:
+  """A frame stack as a tensor on ``device``; a host stack bound for the
+  card is copied from pinned memory, asynchronously."""
+  if isinstance(images, np.ndarray):
+    images = torch.from_numpy(images if images.flags.writeable
+                              else images.copy())
+  images = torch.as_tensor(images)
+  if device.type == "cuda" and images.device.type == "cpu":
+    images = images.pin_memory()
+  return images.to(device, non_blocking=True)
+
+
+def _filter_steps(params, config, frames, carry, return_aux, graph):
+  """The filter steps over ``frames`` (preprocessed, on the device) from
+  ``carry``. Returns (xs, Ps, final carry, stacked aux or None)."""
+  n = frames.shape[0]
+  x, P = carry[:2]
+  xs = x.new_empty((n,) + tuple(x.shape))
+  Ps = P.new_empty((n,) + tuple(P.shape))
+  auxs = None
+  step = None
+  for t in range(n):
+    if not graph:
+      x1, P1, feat1, aux = kfnet.filter_step(params, config, *carry,
+                                             frames[t])
+      carry = (x1, P1, feat1)
+    elif step is None:  # the weights are checked once a call
+      step, aux = _captured_step(params, config, carry, frames[t],
+                                 return_aux)
+      carry = step.carry
+    else:
+      aux = step.replay(frames[t], carry)
+    xs[t].copy_(carry[0])
+    Ps[t].copy_(carry[1])
+    if return_aux:
+      if auxs is None:
+        auxs = {k: v.new_empty((n,) + tuple(v.shape)) for k, v in aux.items()}
+      for k, v in aux.items():
+        auxs[k][t].copy_(v)
+  if step is not None:  # the graph's buffers: the next replay overwrites
+    carry = tuple(c.clone() for c in carry)
+  return xs, Ps, carry, auxs
+
+
+def run_filter(params, config: kfnet.KFNetConfig, images,
+               carry: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+               | None = None,
+               return_aux: bool = False, device=None,
+               graph: bool | None = None):
+  """Filter a whole (T, H, W, 3) sequence.
+
+  Args:
+    images: (T, H, W, 3) frames (uint8 0..255, or float in [0, 1]), a
+      tensor or a numpy array; moved to the device.
+    carry: optional (x, P, feat) carry to resume from (chunked
+      streaming); None starts a new sequence with frame 0 =
+      measurement-only.
+    graph: replay each filter step as a CUDA graph (the default on
+      ``cuda``; False runs it eagerly).
+
+  Returns:
+    (xs, Ps): (T, h, w, 3), (T, h, w, 1) per-frame posteriors, the final
+    carry, and (with ``return_aux``) the stacked aux dict of frames
+    1..T-1 (of every frame when resuming).
+  """
+  device = device_of(params, device)
+  graph = _use_graph(device, graph)
+  frames = kfnet.preprocess_images(config, frames_to_device(images, device))
+  lead = None
+  if carry is None:
+    x0, P0, feat0 = kfnet.first_step(params, config, frames[0])
+    carry, frames, lead = (x0, P0, feat0), frames[1:], (x0, P0)
+  xs, Ps, carry, auxs = _filter_steps(params, config, frames, carry,
+                                      return_aux, graph)
+  if lead is not None:
+    xs = torch.cat([lead[0][None], xs])
+    Ps = torch.cat([lead[1][None], Ps])
+  if return_aux:
+    return xs, Ps, carry, auxs
+  return xs, Ps, carry
+
+
+def _stack_chunk(chunk, device: torch.device, copy_stream):
+  """One chunk of frames as a (k, H, W, 3) tensor on ``device``. Host frames
+  are stacked once on the host; bound for the card, they go through pinned
+  memory on ``copy_stream``, and the current stream waits for the copy."""
+  if isinstance(chunk[0], np.ndarray):
+    host = torch.from_numpy(np.stack(chunk))
+  else:
+    host = torch.stack([torch.as_tensor(f) for f in chunk])
+  if host.device == device or copy_stream is None:
+    return host.to(device)
+  host = host.pin_memory()
+  with torch.cuda.stream(copy_stream):
+    frames = host.to(device, non_blocking=True)
+    done = copy_stream.record_event()
+  compute = torch.cuda.current_stream(device)
+  compute.wait_event(done)
+  frames.record_stream(compute)  # allocated on the copy stream
+  return frames
+
+
+def run_filter_chunked_arrays(params, config: kfnet.KFNetConfig,
+                              frame_source, chunk_size: int = 32,
+                              return_aux: bool = False, device=None,
+                              graph: bool | None = None):
+  """Stream an arbitrarily long sequence through the filter in chunks
+  (O(chunk) device memory), yielding WHOLE device-resident chunks: (xs (k,
+  h, w, 3), Ps (k, h, w, 1)).
+
+  Args:
+    frame_source: iterable of (H, W, 3) frames: numpy arrays or tensors
+      (on the host, or already on the device, where they stay). uint8
+      frames stay 1 byte a channel through the host stack and the upload
+      and are cast to [0, 1] float32 on the device.
+    return_aux: also yield the stacked per-step aux dict as a third
+      element. Frame 0 is measurement-only and has no filter step, so in
+      the FIRST yielded chunk the aux rows align with ``xs[1:]``; in every
+      later chunk they align with ``xs`` 1:1.
+
+  The first chunk holds one extra frame (frame 0, measurement-only), the
+  others ``chunk_size``; a ragged tail runs its own frames. (The JAX
+  streamer pads the tail to the chunk's shape, for its one compile, and
+  trims the outputs; a per-frame graph has no chunk shape, so nothing is
+  padded and the outputs are the same.)
+
+  The generator is pipelined one chunk deep: chunk k is stacked on the
+  host, uploaded and its steps enqueued BEFORE chunk k-1 is yielded. On
+  ``cuda`` the upload is a copy from pinned memory on a copy stream, and
+  the compute stream waits on an event for it, so chunk k's upload
+  overlaps chunk k-1's compute. What does not overlap: the host's stack
+  and pin of chunk k run before the yield, on the host; and a consumer's
+  read of chunk k-1 (``.cpu()``, a sync) on the compute stream is queued
+  behind chunk k's steps, so it returns only after chunk k's compute as
+  well (XLA's transfer of one buffer waits for that buffer alone; a CUDA
+  stream is in order). Outputs and their order are those of the
+  unpipelined form; one extra chunk of inputs and outputs is resident.
+
+  An exception in chunk k's stack, upload or dispatch (a bad frame shape,
+  out of memory) does not destroy chunk k-1's results: they are yielded
+  first, then the exception propagates on the consumer's next ``next()``.
+  """
+  device = device_of(params, device)
+  graph = _use_graph(device, graph)
+  copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+  def flush(chunk, carry):
+    frames = _stack_chunk(chunk, device, copy_stream)
+    out = run_filter(params, config, frames, carry=carry,
+                     return_aux=return_aux, device=device, graph=graph)
+    if return_aux:
+      xs, Ps, carry, auxs = out
+      return (xs, Ps, auxs), carry
+    xs, Ps, carry = out
+    return (xs, Ps), carry
+
+  buf = []
+  carry = None
+  first = True
+  pending = None  # the previous chunk's outputs, not yet yielded
+  for frame in frame_source:
+    buf.append(frame)
+    if len(buf) == (chunk_size + 1 if first else chunk_size):
+      try:
+        out, carry = flush(buf, carry)  # stack, upload, enqueue chunk k
+      except BaseException:
+        if pending is not None:
+          done, pending = pending, None
+          yield done  # keep chunk k-1 for the consumer's record
+        raise
+      first = False
+      buf = []
+      if pending is not None:
+        yield pending  # the consumer reads k-1 while k computes
+      pending = out
+  if buf:
+    try:
+      out, carry = flush(buf, carry)
+    except BaseException:
+      if pending is not None:
+        done, pending = pending, None
+        yield done
+      raise
+    if pending is not None:
+      yield pending
+    pending = out
+  if pending is not None:
+    yield pending
+
+
+def run_filter_chunked(params, config: kfnet.KFNetConfig, frame_source,
+                       chunk_size: int = 32, device=None,
+                       graph: bool | None = None):
+  """Per-frame wrapper over :func:`run_filter_chunked_arrays`.
+
+  Yields:
+    (x, P) posterior per frame, in order (views of the chunk's outputs).
+  """
+  for xs, Ps in run_filter_chunked_arrays(params, config, frame_source,
+                                          chunk_size=chunk_size,
+                                          device=device, graph=graph):
+    for i in range(xs.shape[0]):
+      yield xs[i], Ps[i]
+
+
+def run_filter_batched(params, config: kfnet.KFNetConfig, images,
+                       device=None, graph: bool | None = None):
+  """Serving mode: B independent sequences filtered in lockstep.
+
+  Args:
+    images: (T, B, H, W, 3), time-major, so each step takes a contiguous
+      (B, H, W, 3) slab; on the kernel path one fused launch updates the B
+      maps of a step.
+
+  Returns:
+    xs (T, B, h, w, 3), Ps (T, B, h, w, 1).
+  """
+  xs, Ps, _ = run_filter(params, config, images, device=device, graph=graph)
+  return xs, Ps
+
+
+def run_filter_python_loop(params, config: kfnet.KFNetConfig, images,
+                           device=None):
+  """Reference-shaped eager loop (one step per frame on the raw frame, like
+  the TF1 eval driver): the reference of the equivalence tests."""
+  device = device_of(params, device)
+  images = frames_to_device(images, device)
+  x, P, feat = kfnet.first_step(params, config, images[0])
+  xs, Ps = [x], [P]
+  for t in range(1, images.shape[0]):
+    x, P, feat, _ = kfnet.filter_step(params, config, x, P, feat, images[t])
+    xs.append(x)
+    Ps.append(P)
+  return torch.stack(xs), torch.stack(Ps)

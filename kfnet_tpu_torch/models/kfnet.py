@@ -32,7 +32,7 @@ class KFNetConfig:
   """The JAX package's config, with ``use_fused_kernel`` in place of
   ``use_pallas``. False selects the warp ∘ kalman composition, which also
   returns the prior; the adaptive path (``adaptive_alpha_max > 1``) needs
-  a global reduction between warp and update and always takes it."""
+  a reduction over each map between warp and update and always takes it."""
   scoordnet: scoordnet.SCoordNetConfig = scoordnet.SCoordNetConfig()
   oflownet: oflownet.OFlowNetConfig = oflownet.OFlowNetConfig()
   chi2_threshold: float = kalman.CHI2_3DOF_P50
@@ -89,14 +89,15 @@ def flow_from_features(params, config: KFNetConfig, feat_prev, feat_cur):
 
 def _kernel_path(config: KFNetConfig) -> bool:
   """The fused kernel takes the update; the adaptive path (a cap > 1)
-  needs a global reduction between warp and update and never does."""
+  needs a reduction over each map between warp and update and never
+  does."""
   return config.use_fused_kernel and not config.adaptive_alpha_max > 1.0
 
 
 def _composed_update(config: KFNetConfig, x_prev, P_prev, flow, W, z, V):
   """warp ∘ gain ∘ innovation ∘ update as a composition, with the adaptive
-  inflation when it is on. Returns (x_post, P_post, consistent, (x_prior,
-  P_prior))."""
+  inflation when it is on, for one map or a (B, ...) batch. Returns
+  (x_post, P_post, consistent, (x_prior, P_prior))."""
   # clip first, as the kernel does, so both paths see the same flow
   r = float(config.oflownet.search_radius)
   flow = torch.clamp(flow, -r, r)
@@ -104,10 +105,12 @@ def _composed_update(config: KFNetConfig, x_prev, P_prev, flow, W, z, V):
       x_prev, P_prev, flow, W, invalid_cov=config.invalid_cov)
   if config.adaptive_alpha_max > 1.0:
     maha = kalman.mahalanobis_sq(z - x_pr, P_pr, V)
-    # mean over warp-valid pixels only: the invalid band's maha ≈ 0
+    # mean over warp-valid pixels only (the invalid band's maha ≈ 0), one
+    # mean per map: the JAX package computes it under vmap on a batch
     v = valid.to(torch.float32)
-    m_bar = (torch.sum(torch.clamp_max(maha, 25.0) * v)
-             / torch.clamp_min(torch.sum(v), 1.0))
+    per_map = dict(dim=(-3, -2, -1), keepdim=True)
+    m_bar = (torch.sum(torch.clamp_max(maha, 25.0) * v, **per_map)
+             / torch.clamp_min(torch.sum(v, **per_map), 1.0))
     alpha = torch.clamp(m_bar / 3.0, 1.0, config.adaptive_alpha_max)
     P_pr = alpha * P_pr
   x_post, P_post, consistent = kalman.kalman_update(
@@ -118,7 +121,9 @@ def _composed_update(config: KFNetConfig, x_prev, P_prev, flow, W, z, V):
 def filter_step(params, config: KFNetConfig, x_prev, P_prev, feat_prev,
                 image_cur):
   """One recursive-filter step on one frame, or on a batch of B frames in
-  lockstep (the kernel path: one fused launch for all B maps).
+  lockstep (the kernel path: one fused launch for all B maps; the
+  composition: each map warped and, when adaptive, inflated by its own
+  statistic).
 
   Args:
     x_prev/P_prev: ([B,] h, w, 3)/([B,] h, w, 1) previous posterior.

@@ -119,21 +119,32 @@ def reprojection_errors(uv, X, K, R, t, max_err: float = 1e6):
 
 def _se3_apply(dw, dt, R, t):
   dR = geo.axis_angle_to_matrix(dw)
-  return dR @ R, dR @ t + dt
+  return dR @ R, (dR @ t[..., None])[..., 0] + dt
 
 
 def refine_pnp_lm(uv, X, K, R0, t0, weights, iters: int = 10,
                   damping: float = 1e-3):
   """Fixed-iteration Levenberg–Marquardt polish of (R, t) minimising the
-  weighted reprojection error; each step solves a 6x6 system."""
+  weighted reprojection error; each step solves a 6x6 system per frame.
+
+  Args:
+    uv: ([T,] n, 2); X: ([T,] n, 3); K: (3, 3); R0: ([T,] 3, 3); t0: ([T,]
+      3); weights: ([T,] n). A leading T polishes T frames at once, each
+      with its own damping. One frame runs as a batch of one, so that
+      each frame of a batch sums its normal equations as it would alone.
+  """
+  if weights.dim() == 1:
+    R, t = refine_pnp_lm(uv[None], X[None], K, R0[None], t0[None],
+                         weights[None], iters, damping)
+    return R[0], t[0]
   fx, fy = K[0, 0], K[1, 1]
 
   def residuals(R, t):
-    pc = X @ R.T + t
+    pc = X @ R.transpose(-1, -2) + t[..., None, :]
     z = torch.clamp_min(pc[..., 2], 1e-6)
     u = fx * pc[..., 0] / z + K[0, 2]
     v = fy * pc[..., 1] / z + K[1, 2]
-    return torch.stack([u - uv[:, 0], v - uv[:, 1]], -1), pc, z
+    return torch.stack([u - uv[..., 0], v - uv[..., 1]], -1), pc, z
 
   def residuals_jac(R, t):
     r, pc, z = residuals(R, t)
@@ -141,29 +152,37 @@ def refine_pnp_lm(uv, X, K, R0, t0, weights, iters: int = 10,
     zero = torch.zeros_like(z)
     du = torch.stack([fx * zinv, zero, -fx * pc[..., 0] * zinv * zinv], -1)
     dv = torch.stack([zero, fy * zinv, -fy * pc[..., 1] * zinv * zinv], -1)
-    Jp = torch.stack([du, dv], -2)                     # (n, 2, 3)
-    Jw = -Jp @ geo.hat(pc)                             # (n, 2, 3)
-    return r, torch.cat([Jw, Jp], -1)                  # (n, 2, 6)
+    Jp = torch.stack([du, dv], -2)                     # (.., n, 2, 3)
+    Jw = -Jp @ geo.hat(pc)                             # (.., n, 2, 3)
+    return r, torch.cat([Jw, Jp], -1)                  # (.., n, 2, 6)
 
   def cost_of(r):
-    return torch.sum(weights * torch.sum(r * r, -1))
+    return torch.sum(weights * torch.sum(r * r, -1), -1)
 
   eye6 = torch.eye(6, dtype=uv.dtype, device=uv.device)
   R, t = R0, t0
-  lam = torch.full((), damping, dtype=uv.dtype, device=uv.device)
+  lam = torch.full(weights.shape[:-1], damping, dtype=uv.dtype,
+                   device=uv.device)
   c = cost_of(residuals(R, t)[0])
   for _ in range(iters):
     r, J = residuals_jac(R, t)
-    wts = weights[:, None]
-    JTJ = torch.einsum("nik,ni,nij->kj", J, wts * torch.ones_like(r), J)
-    JTr = torch.einsum("nik,ni->k", J, wts * r)
-    H = JTJ + lam * eye6 * torch.clamp_min(torch.trace(JTJ) / 6.0, 1e-8)
-    delta = -torch.linalg.solve_ex(H, JTr)[0]
-    R_new, t_new = _se3_apply(delta[:3], delta[3:], R, t)
+    # [JᵀWJ | JᵀWr] as one (6, 2n) x (2n, 7) product a frame: the same
+    # product for every frame of any batch (a separate JᵀWr would be a
+    # matrix-vector product, whose summation order follows the batch)
+    lead = J.shape[:-3]
+    wJr = weights[..., None, None] * torch.cat([J, r[..., None]], -1)
+    G = (J.reshape(lead + (-1, 6)).transpose(-1, -2)
+         @ wJr.reshape(lead + (-1, 7)))
+    JTJ, JTr = G[..., :6], G[..., 6]
+    trace = torch.diagonal(JTJ, dim1=-2, dim2=-1).sum(-1)
+    H = JTJ + (lam * torch.clamp_min(trace / 6.0, 1e-8))[..., None,
+                                                          None] * eye6
+    delta = -torch.linalg.solve_ex(H, JTr[..., None])[0][..., 0]
+    R_new, t_new = _se3_apply(delta[..., :3], delta[..., 3:], R, t)
     c_new = cost_of(residuals(R_new, t_new)[0])
     improved = c_new < c
-    R = torch.where(improved, R_new, R)
-    t = torch.where(improved, t_new, t)
+    R = torch.where(improved[..., None, None], R_new, R)
+    t = torch.where(improved[..., None], t_new, t)
     c = torch.where(improved, c_new, c)
     lam = torch.where(improved, lam * 0.5, lam * 4.0)
   return R, t

@@ -31,6 +31,10 @@ bits and counts once per replay; the relocaliser's graphed filter step
 gives the eager step's bits (held at rtol = atol = 1e-3), follows weights
 updated in place between two ticks, is replayed from the new carry after a
 reset without a second capture, and counts its launches under replay.
+The sequence path's graphed run_filter, its chunked, resumed and batched
+forms and its aux are held against the eager loop at rtol = atol = 1e-3
+with launches counted under replay; the batched pose solve against each
+frame's solve on the same index sets at rtol 1e-4 / atol 1e-6 on T_wc.
 """
 
 import numpy as np
@@ -618,3 +622,115 @@ def test_reset_replays_the_graph_from_the_new_carry(cuda, config):
   for g, e in zip(graphed.state, eager.state):
     np.testing.assert_allclose(g.float().cpu().numpy(),
                                e.float().cpu().numpy(), rtol=1e-3, atol=1e-3)
+
+
+# The sequence path on the card (filter/sequence.py): run_filter with each
+# filter step a CUDA graph replay, its chunked and resumed forms and the
+# batched form, against the eager loop (held at rtol = atol = 1e-3, as the
+# graphed relocaliser), launches counted under replay; the batched pose
+# solve against each frame's solve on the same index sets (rtol 1e-4, atol
+# 1e-6 on T_wc, chip_smoke.py's).
+
+@pytest.mark.parametrize("config", ["default", "conv_kernels"])
+def test_graphed_run_filter_matches_eager_and_counts(cuda, config):
+  from kfnet_tpu_torch.filter import sequence
+  cfg = _small_configs()[config]
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  frames = np.random.default_rng(5).integers(0, 256, (7, 48, 64, 3),
+                                             dtype=np.uint8)
+  dev_frames = torch.from_numpy(frames).to(cuda)
+  counters = (tff.fused_filter_step, tc3.conv3x3_same, tc3.conv3x3_gn_chain)
+  first = kfnet.kernel_shapes(cfg, (48, 64, 3), first=True)
+  later = kfnet.kernel_shapes(cfg, (48, 64, 3))
+  want = [6] + [len(first[k]) + 6 * len(later[k])
+                for k in ("conv3x3_same", "conv3x3_gn_chain")]
+  ref = sequence.run_filter_python_loop(params, cfg, dev_frames)
+
+  def held(got):
+    for g, e in zip(got, ref):
+      np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                 rtol=1e-3, atol=1e-3)
+
+  runs = {
+      "graphed": lambda: sequence.run_filter(params, cfg, dev_frames)[:2],
+      "eager": lambda: sequence.run_filter(params, cfg, dev_frames,
+                                           graph=False)[:2],
+      "chunked": lambda: tuple(torch.cat(p) for p in zip(
+          *sequence.run_filter_chunked_arrays(params, cfg, list(frames),
+                                              chunk_size=2))),
+      "resumed": lambda: (lambda a: tuple(torch.cat(p) for p in zip(
+          a[:2], sequence.run_filter(params, cfg, dev_frames[3:],
+                                     carry=a[2])[:2])))(
+          sequence.run_filter(params, cfg, dev_frames[:3])),
+  }
+  for name, run in runs.items():
+    before = [c.launches for c in counters]
+    got = run()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == want, name
+    held(got)
+  # a second graphed call replays the kept graph from frame 1 on
+  key = sequence._graph_key(cfg, kfnet.preprocess_images(cfg, dev_frames[1]),
+                            False)
+  step = sequence._graphs[key]
+  held(runs["graphed"]())
+  assert sequence._graphs[key] is step
+  _, _, _, aux = sequence.run_filter(params, cfg, dev_frames,
+                                     return_aux=True)
+  _, _, _, aux_e = sequence.run_filter(params, cfg, dev_frames,
+                                       return_aux=True, graph=False)
+  assert set(aux) == set(aux_e) and aux["z"].shape[0] == 6
+  for k in aux:
+    np.testing.assert_allclose(aux[k].float().cpu().numpy(),
+                               aux_e[k].float().cpu().numpy(), rtol=1e-3,
+                               atol=1e-3)
+  if config == "default":  # a batch: one fused launch a step, B maps
+    batch = dev_frames[:, None].expand(7, 2, 48, 64, 3)
+    before = tff.fused_filter_step.launches
+    xs, Ps = sequence.run_filter_batched(params, cfg, batch)
+    torch.cuda.synchronize()
+    assert tff.fused_filter_step.launches == before + 6
+    held((xs[:, 1], Ps[:, 1]))
+
+
+def test_batched_pose_solve_matches_per_frame_on_card(cuda):
+  from kfnet_tpu_torch.core import geometry
+  from kfnet_tpu_torch.pose import ransac
+  rng = np.random.default_rng(6)
+  T, n = 4, 3000
+  K = np.asarray([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]])
+  uvs, Xs, poses = [], [], []
+  for _ in range(T):
+    w = rng.normal(size=3) * 0.3
+    th = np.linalg.norm(w)
+    k = w / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    tv = rng.normal(size=3)
+    pc = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n),
+                   rng.uniform(1, 5, n)], -1)
+    X = pc @ R.T + tv
+    out = rng.choice(n, n // 4, replace=False)
+    X[out] += rng.normal(size=(len(out), 3)) * 2.0
+    uvs.append(pc[:, :2] / pc[:, 2:] * 525.0 + K[:2, 2])
+    Xs.append(X)
+    T_wc = np.eye(4)
+    T_wc[:3, :3], T_wc[:3, 3] = R, tv
+    poses.append(T_wc)
+  f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+  rc = ransac.RansacConfig()
+  uv, X, w = ransac.select_confident(
+      f32(np.stack(uvs)), f32(np.stack(Xs)), f32(rng.uniform(0.5, 2, (T, n))),
+      torch.ones((T, n), dtype=torch.bool, device=cuda), rc.top_k)
+  idx = ransac.sample_hypotheses(w, rc.num_hypotheses, rc.sample_size,
+                                 torch.Generator(device=cuda).manual_seed(0))
+  got = ransac.solve_with_indices(uv, X, w, f32(K), idx, rc)
+  for f in range(T):
+    one = ransac.solve_with_indices(uv[f], X[f], w[f], f32(K), idx[f], rc)
+    np.testing.assert_allclose(got["T_wc"][f].cpu().numpy(),
+                               one["T_wc"].cpu().numpy(), rtol=1e-4,
+                               atol=1e-6)
+    assert geometry.translation_error(got["T_wc"][f],
+                                      f32(poses[f])).item() < 0.01
+    assert geometry.rotation_error_deg(got["T_wc"][f],
+                                       f32(poses[f])).item() < 0.1

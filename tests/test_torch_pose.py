@@ -198,3 +198,131 @@ def test_geometry_matches_jax():
       np.asarray(jax.vmap(jgeo.invert_pose)(jnp.asarray(T))), atol=1e-6)
   np.testing.assert_allclose(
       tgeo.hat(t(w)).numpy(), np.asarray(jgeo.hat(jnp.asarray(w))))
+
+
+# The batched solve: a leading frame dim T through select_confident,
+# sample_hypotheses, solve_with_indices and refine_pnp_lm, held against the
+# JAX package's solve under jax.vmap over frames (per-frame keys, their
+# index sets reproduced here) and against T single calls of the port on the
+# same indices. Tolerances as above against JAX; against the single calls
+# rtol 1e-4 / atol 1e-5 on T_wc (batched and single products may sum in
+# another order), inlier counts equal.
+
+def _frames(T, n=400, seed=20):
+  rng = np.random.default_rng(seed)
+  scenes = [synth_scene(rng, n=n, noise_px=1.0, outlier_frac=0.3)
+            for _ in range(T)]
+  uv, X, T_wc, K = (np.stack(a) for a in zip(*scenes))
+  var = rng.uniform(0.5, 2.0, (T, n)).astype(np.float32)
+  valid = np.ones((T, n), bool)
+  valid[:, :10] = False
+  valid[1, 10:30] = False  # the frames differ in their valid sets
+  return uv, X, var, valid, T_wc, K[0]
+
+
+def test_batched_solve_with_indices_matches_jax_vmap_and_single_calls():
+  T, n, k, M = 3, 400, 256, 64
+  uv, X, var, valid, T_wc, K = _frames(T, n)
+  jcfg = jransac.RansacConfig(num_hypotheses=M, top_k=k)
+  cfg = transac.RansacConfig(num_hypotheses=M, top_k=k)
+  keys = jax.random.split(jax.random.key(4), T)
+  want = jax.vmap(lambda u, x, v, m, key: jransac.solve_pnp_ransac(
+      u, x, v, m, jnp.asarray(K), key, jcfg))(
+          *(jnp.asarray(a) for a in (uv, X, var, valid)), keys)
+  jsel = jax.vmap(lambda u, x, v, m: jransac.select_confident(u, x, v, m, k))(
+      *(jnp.asarray(a) for a in (uv, X, var, valid)))
+  idx = np.stack([np.array(_jax_indices(jsel[2][f], k, M, keys[f]))
+                  for f in range(T)])
+  tuv, tX, tw = transac.select_confident(t(uv), t(X), t(var),
+                                         torch.from_numpy(valid), k)
+  for g, w in zip((tuv, tX, tw), jsel):
+    np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+  tidx = torch.from_numpy(idx).long()
+  got = transac.solve_with_indices(tuv, tX, tw, t(K), tidx, cfg)
+  assert got["T_wc"].shape == (T, 4, 4)
+  np.testing.assert_allclose(got["T_wc"].numpy(), np.asarray(want["T_wc"]),
+                             atol=1e-3)
+  np.testing.assert_array_equal(got["num_inliers"].numpy(),
+                                np.asarray(want["num_inliers"]))
+  np.testing.assert_allclose(got["inlier_ratio"].numpy(),
+                             np.asarray(want["inlier_ratio"]), rtol=1e-6)
+  for f in range(T):
+    one = transac.solve_with_indices(tuv[f], tX[f], tw[f], t(K), tidx[f],
+                                     cfg)
+    np.testing.assert_allclose(got["T_wc"][f].numpy(), one["T_wc"].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert got["num_inliers"][f].item() == one["num_inliers"].item()
+    np.testing.assert_allclose(got["mean_inlier_error_px"][f].item(),
+                               one["mean_inlier_error_px"].item(),
+                               rtol=1e-4)
+    assert tgeo.translation_error(got["T_wc"][f], t(T_wc[f])).item() < 0.05
+
+
+def test_batched_pieces_equal_single_frames():
+  T, n = 3, 120
+  uv, X, var, valid, _, K = _frames(T, n, seed=21)
+  sel = transac.select_confident(t(uv), t(X), t(var),
+                                 torch.from_numpy(valid), 64)
+  for f in range(T):
+    one = transac.select_confident(t(uv[f]), t(X[f]), t(var[f]),
+                                   torch.from_numpy(valid[f]), 64)
+    for g, w in zip(sel, one):
+      assert torch.equal(g[f], w)
+  # shared pixels (one grid for all frames) broadcast over the frames
+  shared = transac.select_confident(t(uv[0]), t(X), t(var),
+                                    torch.from_numpy(valid), 64)
+  assert shared[0].shape == (T, 64, 2)
+  w = sel[2].clone()
+  w[2] = 0.0  # a frame with no valid slot samples over all of them
+  idx = transac.sample_hypotheses(w, 50, 6, torch.Generator().manual_seed(0))
+  assert idx.shape == (T, 50, 6)
+  for f in range(T):
+    for row in idx[f].tolist():
+      assert len(set(row)) == 6 and all(w[f, i] > 0 or f == 2 for i in row)
+  # the LM polish, T frames at once against one by one
+  R0 = torch.stack([tgeo.axis_angle_to_matrix(t([0.05 * f, -0.04, 0.03]))
+                    for f in range(T)])
+  t0 = t(np.random.default_rng(1).normal(size=(T, 3)))
+  R, tt = tpnp.refine_pnp_lm(sel[0], sel[1], t(K), R0, t0, sel[2], iters=5)
+  for f in range(T):
+    R1, t1 = tpnp.refine_pnp_lm(sel[0][f], sel[1][f], t(K), R0[f], t0[f],
+                                sel[2][f], iters=5)
+    np.testing.assert_allclose(R[f].numpy(), R1.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(tt[f].numpy(), t1.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_from_maps_batched_recovers_known_poses():
+  """(T, h, w) maps of known scenes through one batched solve: each frame's
+  pose back; a 3-dim map stack is refused."""
+  rng = np.random.default_rng(9)
+  T, h, w, stride = 4, 30, 40, 8
+  K = np.asarray(jgeo.make_intrinsics(*jgeo.SEVEN_SCENES_K))
+  grid = np.asarray(jgeo.cell_center_grid(h, w, stride)).reshape(-1, 2)
+  coords, poses = [], []
+  for _ in range(T):
+    R_wc = np.asarray(jgeo.axis_angle_to_matrix(
+        jnp.asarray(rng.normal(size=3) * 0.2, jnp.float32)))
+    t_wc = rng.normal(size=3).astype(np.float32)
+    depth = rng.uniform(1.0, 4.0, h * w)
+    rays = np.concatenate([grid, np.ones((h * w, 1))], 1) @ np.linalg.inv(K).T
+    pc = rays * depth[:, None]
+    X = pc @ R_wc.T + t_wc
+    out = rng.choice(h * w, h * w // 4, replace=False)
+    X[out] += rng.normal(size=(len(out), 3)) * 2.0
+    coords.append(X.reshape(h, w, 3).astype(np.float32))
+    T_wc = np.eye(4)
+    T_wc[:3, :3], T_wc[:3, 3] = R_wc, t_wc
+    poses.append(T_wc)
+  var = t(rng.uniform(0.5, 2.0, (T, h, w, 1)))
+  ones = torch.ones(var.shape, dtype=torch.bool)
+  got = transac.solve_pnp_from_maps_batched(
+      t(np.stack(coords)), var, ones, t(K), torch.Generator().manual_seed(0),
+      stride=stride, config=transac.RansacConfig(num_hypotheses=128))
+  assert got["T_wc"].shape == (T, 4, 4)
+  for f in range(T):
+    assert tgeo.translation_error(got["T_wc"][f], t(poses[f])).item() < 0.02
+    assert tgeo.rotation_error_deg(got["T_wc"][f], t(poses[f])).item() < 0.5
+  with pytest.raises(ValueError):
+    transac.solve_pnp_from_maps_batched(t(coords[0]), var[0], ones[0], t(K))
