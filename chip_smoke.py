@@ -43,8 +43,9 @@ Phases, one line each, with their seconds:
      64..512 with a 512 head, OFlowNet encoder 32..128, r=4, U-Net
      128/128/256, s2d 2, bf16) with weights drawn from seed 0, serving
      eight 640x480 uint8 frames through OnlineRelocalizer, whose filter
-     step is one CUDA graph replayed a frame. The kernel must launch once
-     per frame after the first (launches counted under replay), the packed
+     step is one CUDA graph replayed a frame. The fused kernel must launch
+     once per frame after the first and the conv kernels never (every
+     count set to 0 just before and read after, under replay), the packed
      outputs must be finite, the same frames through use_fused_kernel=False
      must give the same x and P (rtol 1e-3, atol 1e-3: the two paths share
      every bf16 op, so any difference is the kernel's), and through the
@@ -94,6 +95,32 @@ Phases, one line each, with their seconds:
      chunk 32), the analytic GFLOP a frame, the MFU and the card's bf16
      peak (eval/flops.py; null for a card it does not know), beside the
      card's name and power limit;
+  7c. pretrained: the shipped synthetic weights (the committed .npz
+     export, kfnet_tpu_torch/assets) loaded on the card by pretrained.load
+     and load_stage12; sceneA's held-out trajectory (seed 0, trajectory
+     seed 99, 16 frames at the export's 96x128) rendered on the card by
+     data/synthetic.py, against the same render on the CPU (at most 0.1% of
+     the pixels off by more than 1e-4: sphere silhouettes); evaluate_sequence's
+     medians within the JAX package's artifact gate (< 0.5 m, < 8°), the
+     fused update's launches (15 a filter run, warm-up and timed run), the
+     stage-1 + stage-2 pair's filter finite;
+  7d. p3p: one 640x480 frame's 60x80 maps of a known pose (30% outliers)
+     solved by RANSAC's P3P solver at the full-size synthetic preset
+     (configs.synthetic_ransac(True)): within 1 cm and 0.1°; the served tick
+     with the P3P solver enqueued with no host sync; the solve's time beside
+     the DLT's at the same budget;
+  7e. fleet: FleetRelocalizer, FLEET_B = 4 streams of 640x480 uint8 frames
+     over FLEET_T ticks at full width, default and conv-kernel configs,
+     slot 2 reset at tick FLEET_RESET: launches (one fused launch a tick;
+     kfnet.kernel_shapes' conv calls times B), one capture and none after
+     the reset ticks, no host sync in a tick with or without a reset mask,
+     the reset slot's consistent_frac 0, pipelined (depth 1) ticks equal to
+     the sync ticks, each slot against the stream alone through an
+     OnlineRelocalizer (bf16 default config recorded, its float32 form and
+     the conv-kernel config held at TOL_PATH relative), every conv kernel
+     call of one tick pair against its plain version; fleet_tick_ms_b4 and
+     fleet_pipelined_tick_ms_b4 by CUDA events, and the tick's parts: the
+     filter step's graph replay and the batched pose solve;
   8. times with CUDA events: process() per frame in both configurations,
      graphed and eager, and the filter step alone (solve_pose=False): its
      host ms a frame (the enqueue) and its ms a frame, graphed and eager,
@@ -164,6 +191,9 @@ GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5  # fused kernel's gradients: golden tols
 BOUNDS = {"z": 0.05, "flow": 0.07, "V": 0.1, "W": 0.1}
 IMG = (480, 640, 3)
 SEQ_T, SEQ_T_CONV = 16, 8   # frames of the sequence phase, per config
+PRE_T = 16                  # frames of sceneA's held-out trajectory
+FLEET_B, FLEET_T = 4, 6     # the fleet phase's streams and ticks
+FLEET_RESET = 3             # the tick at which slot 2 starts over
 # the batched pose solve against each frame's solve on the same indices,
 # T_wc: rtol, and an atol for its entries near 0
 POSE_RTOL, POSE_ATOL = 1e-4, 1e-6
@@ -361,15 +391,16 @@ def rodrigues(w):
   return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
 
 
-def host_syncs(reloc, frame):
-  """Warnings of torch's sync debug mode while one frame is enqueued: the
-  frame's work must not wait on the device before its one result copy."""
+def host_syncs(reloc, frame, **kw):
+  """Warnings of torch's sync debug mode while one frame (or a fleet's
+  tick) is enqueued: its work must not wait on the device before its one
+  result copy."""
   import torch
   with warnings.catch_warnings(record=True) as caught:
     warnings.simplefilter("always")
     torch.cuda.set_sync_debug_mode("warn")
     try:
-      packed = reloc.tick(frame)
+      packed = reloc.tick(frame, **kw)
     finally:
       torch.cuda.set_sync_debug_mode("default")
   packed.cpu()
@@ -646,6 +677,234 @@ def known_poses(rng, T, n, K):
           np.stack(poses))
 
 
+def pretrained_phase(dev, wrappers):
+  """The shipped synthetic weights on the card: both loaders, sceneA's
+  held-out trajectory rendered on the card (16 frames at the export's
+  96x128) against the same frames rendered on the CPU, evaluate_sequence's
+  medians within the JAX package's artifact gate (< 0.5 m, < 8°), the
+  stage-1 + stage-2 pair filtering the same frames; fused launches counted
+  (the counts set to 0 just before, read just after)."""
+  import torch
+  from kfnet_tpu_torch import pretrained
+  from kfnet_tpu_torch.data import synthetic
+  from kfnet_tpu_torch.eval import eval_sequence
+  from kfnet_tpu_torch.filter import sequence
+  from kfnet_tpu_torch.nn import layers as L
+  from kfnet_tpu_torch.pose import ransac
+  from kfnet_tpu_torch.utils import checkpoint
+  cfg, params = pretrained.load(device=dev)
+  cfg12, params12 = pretrained.load_stage12(device=dev)
+  meta = checkpoint.load_meta(os.path.join(pretrained.ASSETS,
+                                           "stage3_sceneA"))
+  h, w = int(meta["height"]), int(meta["width"])
+  kw = dict(height=h, width=w, seed=0, traj_seed=99, duration=PRE_T / 48.0)
+  data = synthetic.make_sequence(PRE_T, device=dev, **kw)
+  host = synthetic.make_sequence(PRE_T, device="cpu", **kw)
+  d_rgb = (data["images"].cpu() - host["images"]).abs().amax(-1)
+  d_depth = (data["depths"].cpu() - host["depths"]).abs()
+  far = int(((d_rgb > 1e-4) | (d_depth > 1e-4 * host["depths"].clamp_min(
+      1.0))).sum())
+  reps = 1
+  res, n = counted(wrappers, lambda: eval_sequence.evaluate_sequence(
+      params, cfg, data["images"], data["K"].cpu().numpy(),
+      gt_poses=data["poses"].cpu().numpy(), scene="sceneA",
+      ransac_config=ransac.RansacConfig(num_hypotheses=256, top_k=512),
+      timing_reps=reps))
+  xs12, Ps12, _ = sequence.run_filter(params12, cfg12, data["images"])
+  out = {
+      "config": "pretrained stage3_sceneA (small float32 nets) 96x128",
+      "on_device": all(p.device.type == "cuda" for p in
+                       L.tree_leaves(params) + L.tree_leaves(params12)),
+      "render_pixels_off_cpu": far, "render_pixels": int(d_depth.numel()),
+      "median_translation_m": res.report["median_translation_m"],
+      "median_rotation_deg": res.report["median_rotation_deg"],
+      "accuracy_5cm_5deg": res.report["accuracy_5cm_5deg"],
+      "frames_per_sec": res.report["frames_per_sec"],
+      "launches": n,
+      "launches_expected": {"fused_warp_kalman": (1 + reps) * (PRE_T - 1),
+                            "conv3x3_same": 0, "conv3x3_gn_chain": 0},
+      "stage12_finite": bool(torch.isfinite(xs12).all()
+                             and (Ps12 > 0).all()),
+      "jax_package_report_for_comparison": "artifacts/pretrained_synthetic/"
+                                           "REPORT.json",
+  }
+  return out
+
+
+def known_pose_maps(rng, K, h=60, w=80, stride=8, outliers=0.3):
+  """One 640x480 frame's (h, w) maps of a known pose: world coordinates of
+  each cell's pixel at depths in [1, 5) m, 30% of them moved 2 m away,
+  variances in [0.5, 2): (coords (h, w, 3), var (h, w, 1), T_wc)."""
+  import numpy as np
+  R_wc = rodrigues(np.array([0.25, -0.2, 0.15]))
+  t_wc = np.array([0.4, -0.3, 0.8])
+  off = (stride - 1) // 2
+  v, u = np.meshgrid(np.arange(h) * stride + off, np.arange(w) * stride + off,
+                     indexing="ij")
+  depth = rng.uniform(1.0, 5.0, (h, w))
+  pc = np.stack([(u - K[0, 2]) / K[0, 0] * depth,
+                 (v - K[1, 2]) / K[1, 1] * depth, depth], -1)
+  X = pc @ R_wc.T + t_wc
+  out = rng.uniform(size=(h, w)) < outliers
+  X[out] += rng.normal(size=(int(out.sum()), 3)) * 2.0
+  T_wc = np.eye(4)
+  T_wc[:3, :3], T_wc[:3, 3] = R_wc, t_wc
+  return X, rng.uniform(0.5, 2.0, (h, w, 1)), T_wc
+
+
+def fleet_run(FleetRelocalizer, params, c, K, ticks, resets, dev, **kw):
+  """A fleet over ``ticks`` ((T, B, H, W, 3) uint8) with ``resets`` (a mask
+  or None per tick): (the fleet, its (poses, info) per tick in tick order,
+  pipelined ones included, the state after each tick, cloned)."""
+  fleet = FleetRelocalizer(params, c, K, batch_size=ticks.shape[1],
+                           device=dev, **kw)
+  outs, states = [], []
+  for t in range(ticks.shape[0]):
+    res = fleet.process(ticks[t], reset=resets[t])
+    if not res[1].get("pending"):
+      outs.append(res)
+    states.append(tuple(a.clone() for a in fleet.state[:2]))
+  outs += fleet.flush()
+  return fleet, outs, states
+
+
+def lone_states(OnlineRelocalizer, params, c, K, ticks, resets, dev):
+  """Each slot's stream alone through an OnlineRelocalizer (reset where its
+  slot resets): [per tick: (x (B, ...), P (B, ...))]."""
+  import torch
+  B = ticks.shape[1]
+  lone = [OnlineRelocalizer(params, c, K, device=dev, solve_pose=False)
+          for _ in range(B)]
+  states = []
+  for t in range(ticks.shape[0]):
+    per = []
+    for b in range(B):
+      if resets[t] is not None and resets[t][b]:
+        lone[b].reset()
+      lone[b].process(ticks[t, b])
+      per.append(tuple(a.clone() for a in lone[b].state[:2]))
+    states.append(tuple(torch.stack([p[i] for p in per]) for i in range(2)))
+  return states
+
+
+def states_close(got, want):
+  """Largest |difference| of x and of P, relative to the largest |value|,
+  over the ticks; bit-equal; held within TOL_PATH (relative)."""
+  import torch
+  dx = max((g[0] - w[0]).abs().max().item() / w[0].abs().max().item()
+           for g, w in zip(got, want))
+  dP = max(((g[1] - w[1]).abs() / w[1].abs()).max().item()
+           for g, w in zip(got, want))
+  return {"bit_equal": all(torch.equal(g[i], w[i]) for g, w in zip(got, want)
+                           for i in range(2)),
+          "x_max_rel": dx, "P_max_rel": dP,
+          "held": dx <= TOL_PATH and dP <= TOL_PATH}
+
+
+def fleet_phase(dev, params, configs_, cfg32, K, fticks, resets, first, later,
+                wrappers, c3):
+  """The fleet of FLEET_B streams over ``fticks`` in each configuration of
+  ``configs_`` ({"default": ..., "conv_kernels": ...}): launches (counts
+  set to 0 just before), captures, host syncs of a tick with and without a
+  reset mask, pipelined against sync, slots against lone streams (the
+  default config's bf16 recorded and its float32 ``cfg32`` held; the
+  conv-kernel config held, and every conv call of a tick pair against its
+  plain version); then each config's sync and pipelined tick by CUDA
+  events. Returns ({config: checks}, {config: times})."""
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch.eval import online
+  from kfnet_tpu_torch.eval.online import FleetRelocalizer, OnlineRelocalizer
+  from kfnet_tpu_torch.filter import sequence
+  from kfnet_tpu_torch.pose import ransac
+  captures = []
+
+  class CountedStep(sequence.GraphedStep):
+    def __init__(self, *a, **kw):
+      captures.append(1)
+      super().__init__(*a, **kw)
+
+  fleet_checks, fleets = {}, {}
+  for name, c in configs_.items():
+    captures.clear()
+    with mock.patch.object(online, "GraphedStep", CountedStep):
+      (fl, outs, states), n = counted(wrappers, lambda: fleet_run(
+          FleetRelocalizer, params, c, K, fticks, resets, dev))
+      n_captures = len(captures)
+      syncs = (host_syncs(fl, fticks[1], reset=resets[FLEET_RESET])
+               + host_syncs(fl, fticks[2]))
+      n_captures_after = len(captures)
+    fleets[name] = fl
+    expected = {"fused_warp_kalman": FLEET_T - 1}
+    for k in ("conv3x3_same", "conv3x3_gn_chain"):
+      expected[k] = (FLEET_B * (len(first[k]) + (FLEET_T - 1) * len(later[k]))
+                     if name == "conv_kernels" else 0)
+    _, piped, _ = fleet_run(FleetRelocalizer, params, c, K, fticks, resets,
+                            dev, pipeline_depth=1)
+    shifted = all(
+        ps["tick"] == pp["tick"] and np.array_equal(a, b) and
+        all(np.array_equal(ps[k], pp[k]) for k in
+            ("consistent_frac", "num_inliers", "inlier_ratio"))
+        for (a, ps), (b, pp) in zip(outs, piped))
+    row = {
+        "launches": n, "launches_expected": expected,
+        "captures": n_captures, "captures_after_reset_ticks":
+            n_captures_after - n_captures,
+        "host_syncs_in_one_tick_with_and_without_reset": syncs,
+        "packed_finite": bool(all(np.isfinite(p).all() for p, _ in outs)),
+        "consistent_frac_reset_tick": outs[FLEET_RESET][1][
+            "consistent_frac"].tolist(),
+        "pipelined_equals_sync_shifted": shifted,
+        "ticks_pipelined": len(piped),
+        "vs_lone_streams": states_close(states, lone_states(
+            OnlineRelocalizer, params, c, K, fticks, resets, dev))}
+    if name == "default":  # bf16 is recorded; float32 (same weights) is held
+      _, _, states32 = fleet_run(FleetRelocalizer, params, cfg32, K, fticks,
+                                 resets, dev, solve_pose=False)
+      row["vs_lone_streams_float32"] = states_close(states32, lone_states(
+          OnlineRelocalizer, params, cfg32, K, fticks, resets, dev))
+    else:  # a kernel net runs frame by frame: every call against its plain
+      calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
+      eager_f = FleetRelocalizer(params, c, K, batch_size=FLEET_B,
+                                 device=dev, graph=False, solve_pose=False)
+      with recording(c3, calls):
+        eager_f.process(fticks[0])
+        eager_f.process(fticks[1])
+      row["calls_in_tick_pair_vs_plain"] = check_calls(c3, calls)
+      want_calls = {k: FLEET_B * (len(first[k]) + len(later[k]))
+                    for k in calls}
+      if {k: len(v) for k, v in calls.items()} != want_calls:
+        raise AssertionError(f"fleet conv calls in the tick pair: "
+                             f"{ {k: len(v) for k, v in calls.items()} }")
+      del calls, eager_f
+    fleet_checks[name] = row
+  # times: a sync tick and a pipelined one, CUDA events over 8 ticks each
+  cyc = itertools.cycle(fticks)
+  fleet_times = {}
+  for name, c in configs_.items():
+    piped = FleetRelocalizer(params, c, K, batch_size=FLEET_B, device=dev,
+                             pipeline_depth=1)
+    for _ in range(3):
+      piped.process(next(cyc))
+    fl = fleets[name]
+    step, frames_dev = fl._step, fl._step.frame.clone()
+    x, P = fl.state[:2]
+    fleet_times[name] = {
+        "fleet_tick_ms_b4": cuda_ms(lambda: fl.process(next(cyc)), 8),
+        "fleet_pipelined_tick_ms_b4": cuda_ms(lambda: piped.process(
+            next(cyc)), 8),
+        # the tick's parts: the filter step's replay (device time: the
+        # enqueue is one graph launch) and the batched pose solve (the
+        # host's pace)
+        "filter_step_replay_ms": cuda_ms(lambda: step.replay(
+            frames_dev, step.carry, fl._zero_mask), 8),
+        "pose_solve_ms": cuda_ms(lambda: ransac.solve_pnp_from_maps(
+            x, P, torch.ones_like(P, dtype=torch.bool), fl._K, fl._gen),
+            5)}
+    piped.flush()
+  return fleet_checks, fleet_times
+
+
 def main():
   t_all = time.time()
   import numpy as np
@@ -657,6 +916,7 @@ def main():
   import kfnet_tpu_torch
   from kfnet_tpu_torch.core import geometry
   from kfnet_tpu_torch.eval import benchmark, flops
+  from kfnet_tpu_torch import configs
   from kfnet_tpu_torch.eval.online import OnlineRelocalizer
   from kfnet_tpu_torch.filter import sequence
   from kfnet_tpu_torch.kernels import _build
@@ -761,11 +1021,14 @@ def main():
   frames = np.random.default_rng(0).integers(0, 256, (8, 480, 640, 3),
                                              dtype=np.uint8)
   reloc = OnlineRelocalizer(params, cfg, K, device=dev, seed=0)
-  # the main path's fused update is the heads-in entry, counted under replay
-  ff.fused_filter_step.launches = 0
-  outs = [reloc.process(f) for f in frames]
-  torch.cuda.synchronize()
-  launches = ff.fused_filter_step.launches
+  # the main path's fused update is the heads-in entry, counted under
+  # replay; every kernel's count is set to 0 just before and read after
+  wrappers = {"fused_warp_kalman": ff.fused_filter_step,
+              "conv3x3_same": c3.conv3x3_same,
+              "conv3x3_gn_chain": c3.conv3x3_gn_chain}
+  outs, slice_launches = counted(
+      wrappers, lambda: [reloc.process(f) for f in frames])
+  launches = slice_launches["fused_warp_kalman"]
   x_f, P_f = (a.clone() for a in reloc.state[:2])
   eager = OnlineRelocalizer(params, cfg, K, device=dev, seed=0, graph=False)
   graph_vs_eager = same_outputs((reloc, outs),
@@ -776,9 +1039,11 @@ def main():
   x_p, P_p = plain.state[:2]
   poses = np.stack([p for p, _ in outs])
   fracs = [i["consistent_frac"] for _, i in outs]
+  slice_expected = {"fused_warp_kalman": len(frames) - 1,
+                    "conv3x3_same": 0, "conv3x3_gn_chain": 0}
   checks = {
-      "launches": launches,
-      "launches_expected": len(frames) - 1,
+      "launches": slice_launches,
+      "launches_expected": slice_expected,
       "state_shapes": [list(x_f.shape), list(P_f.shape)],
       "packed_finite": bool(np.isfinite(poses).all() and all(
           np.isfinite([i["consistent_frac"], i["num_inliers"],
@@ -801,9 +1066,9 @@ def main():
   if not graph_vs_eager["held"]:
     raise AssertionError(f"the graphed filter step disagrees with the eager "
                          f"one: {graph_vs_eager}")
-  if launches != len(frames) - 1:
-    raise AssertionError(f"fused kernel launched {launches} times for "
-                         f"{len(frames)} frames")
+  if slice_launches != slice_expected:
+    raise AssertionError(f"kernel launches {slice_launches} for "
+                         f"{len(frames)} frames, expected {slice_expected}")
   if not checks["packed_finite"]:
     raise AssertionError("non-finite packed output")
   if not torch.allclose(x_f, x_p, rtol=TOL_PATH, atol=TOL_PATH) or \
@@ -942,9 +1207,6 @@ def main():
 
   # 7b. the sequence path
   t0 = time.time()
-  wrappers = {"fused_warp_kalman": ff.fused_filter_step,
-              "conv3x3_same": c3.conv3x3_same,
-              "conv3x3_gn_chain": c3.conv3x3_gn_chain}
   srng = np.random.default_rng(4)
   seq_a, seq_b = (srng.integers(0, 256, (SEQ_T,) + IMG, dtype=np.uint8)
                   for _ in range(2))
@@ -1063,6 +1325,91 @@ def main():
                          f"{pose_check}")
   if not all(np.isfinite(v["filter_fps"]) for v in figures.values()):
     raise AssertionError(f"figures: {figures}")
+
+  # 7c. the shipped weights
+  t0 = time.time()
+  pre = pretrained_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("pretrained", t0, gpu=gpu, nvidia_smi=smi,
+      gate={"median_translation_m": 0.5, "median_rotation_deg": 8.0}, **pre)
+  if pre["launches"] != pre["launches_expected"]:
+    raise AssertionError(f"pretrained launches {pre['launches']}, expected "
+                         f"{pre['launches_expected']}")
+  if not (pre["on_device"] and pre["stage12_finite"]):
+    raise AssertionError(f"pretrained weights: {pre}")
+  if pre["render_pixels_off_cpu"] > 1e-3 * pre["render_pixels"]:
+    raise AssertionError(f"the card's render is off the CPU's: {pre}")
+  if not (pre["median_translation_m"] < 0.5
+          and pre["median_rotation_deg"] < 8.0):
+    raise AssertionError(f"sceneA not relocalized: {pre}")
+
+  # 7d. P3P on known poses, and the served tick with the P3P solver
+  t0 = time.time()
+  p3p_cfg = configs.synthetic_ransac(full_size=True)
+  dlt_cfg = dataclasses.replace(p3p_cfg, solver="dlt")
+  coords, var, T_p = known_pose_maps(np.random.default_rng(6), K)
+  maps = (f32(coords), f32(var),
+          torch.ones(var.shape, dtype=torch.bool, device=dev))
+  sol = ransac.solve_pnp_from_maps(*maps, K_dev, gen, config=p3p_cfg)
+  T_p = f32(T_p)
+  reloc_p = OnlineRelocalizer(params, cfg, K, device=dev, seed=0,
+                              ransac_config=p3p_cfg)
+  for f in frames[:2]:
+    reloc_p.process(f)
+  p3p_checks = {
+      "config": dataclasses.asdict(p3p_cfg), "maps": list(coords.shape),
+      "outliers": 0.3,
+      "t_err_m": geometry.translation_error(sol["T_wc"], T_p).item(),
+      "r_err_deg": geometry.rotation_error_deg(sol["T_wc"], T_p).item(),
+      "inlier_ratio": sol["inlier_ratio"].item(),
+      "host_syncs_in_one_tick": host_syncs(reloc_p, frames[2]),
+      # CUDA events around the enqueue: the host's pace
+      "ms_p3p": cuda_ms(lambda: ransac.solve_pnp_from_maps(
+          *maps, K_dev, gen, config=p3p_cfg), 5),
+      "ms_dlt_same_budget": cuda_ms(lambda: ransac.solve_pnp_from_maps(
+          *maps, K_dev, gen, config=dlt_cfg), 5),
+      "packed_finite": bool(np.isfinite(reloc_p.process(frames[3])[0]).all())}
+  say("p3p", t0, gpu=gpu, nvidia_smi=smi, **p3p_checks)
+  if not (p3p_checks["t_err_m"] < 0.01 and p3p_checks["r_err_deg"] < 0.1):
+    raise AssertionError(f"P3P pose off: {p3p_checks}")
+  if p3p_checks["host_syncs_in_one_tick"] or not p3p_checks["packed_finite"]:
+    raise AssertionError(f"the P3P tick: {p3p_checks}")
+
+  # 7e. the fleet: B streams at full width, both configurations
+  t0 = time.time()
+  fticks = np.random.default_rng(7).integers(
+      0, 256, (FLEET_T, FLEET_B) + IMG, dtype=np.uint8)
+  resets = [None] * FLEET_T
+  resets[FLEET_RESET] = np.arange(FLEET_B) == 2
+  fleet_checks, fleet_times = fleet_phase(
+      dev, params, {"default": cfg, "conv_kernels": conv_cfg}, cfg32, K,
+      fticks, resets, first, later, wrappers, c3)
+  print(smi, flush=True)
+  say("fleet", t0, gpu=gpu, nvidia_smi=smi, batch=FLEET_B, ticks=FLEET_T,
+      reset={"tick": FLEET_RESET, "slot": 2}, tol=TOL_PATH,
+      times=fleet_times, **fleet_checks)
+  for name, row in fleet_checks.items():
+    if row["launches"] != row["launches_expected"]:
+      raise AssertionError(f"fleet {name} launches {row['launches']}, "
+                           f"expected {row['launches_expected']}")
+    if row["captures"] != 1 or row["captures_after_reset_ticks"]:
+      raise AssertionError(f"fleet {name}: captured {row['captures']} "
+                           f"times, then {row['captures_after_reset_ticks']}")
+    if row["host_syncs_in_one_tick_with_and_without_reset"]:
+      raise AssertionError(f"a fleet tick waits on the device ({name})")
+    if not (row["packed_finite"] and row["pipelined_equals_sync_shifted"]
+            and row["ticks_pipelined"] == FLEET_T):
+      raise AssertionError(f"fleet {name}: {row}")
+    if row["consistent_frac_reset_tick"][2] != 0.0:
+      raise AssertionError(f"fleet {name}: the reset slot's tick {row}")
+    held = (row["vs_lone_streams_float32"] if name == "default"
+            else row["vs_lone_streams"])
+    if not held["held"]:
+      raise AssertionError(f"fleet {name} slots off their lone streams: "
+                           f"{held}")
+  if not all(np.isfinite(v).all() for t in fleet_times.values()
+             for v in t.values()):
+    raise AssertionError(f"fleet times: {fleet_times}")
 
   # 8. times
   t0 = time.time()
@@ -1192,6 +1539,15 @@ def main():
   if bad:
     raise AssertionError(f"imported {bad}")
   b1, b4 = step["B1_60x80_r4"], step["B4_60x80_r4"]
+  # each path's launches, its counts set to 0 just before it
+  by_phase = {"slice_full_width": slice_launches,
+              "slice_conv_kernels": conv_launches,
+              "sequence_default": forms["graphed"]["launches"],
+              "sequence_conv_kernels": conv_forms["graphed"]["launches"],
+              "pretrained": pre["launches"],
+              **{f"fleet_{k}": v["launches"]
+                 for k, v in fleet_checks.items()}}
+  phase_launches = lambda k: {p: v[k] for p, v in by_phase.items()}
   print(json.dumps({"kernels": [{
       # the fused update: the main path's heads-in entry, one 60x80 map
       # (ms and plain_ms back to back, alone_ms its wrapper in a graph);
@@ -1200,6 +1556,7 @@ def main():
       "source": "kfnet_tpu_torch/kernels/csrc/fused_filter.cu",
       "replaces": "kfnet_tpu/kernels/fused_filter.py:44",
       "launches": launches,
+      "launches_by_phase": phase_launches("fused_warp_kalman"),
       "max_abs_err": step_errs["B1_60x80_r4"]["max_abs_err"],
       "ms": b1["ms"], "plain_ms": b1["plain_ms"],
       "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
@@ -1216,6 +1573,7 @@ def main():
       "source": "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
       "replaces": "kfnet_tpu/kernels/conv3x3.py:31",
       "launches": conv_launches["conv3x3_same"],
+      "launches_by_phase": phase_launches("conv3x3_same"),
       "max_abs_err": max(v for k, v in conv_errs["conv3x3_same"].items()
                          if any(k.startswith(str(s)) for s in same_shapes)),
       "ms": same_frame["ms"], "plain_ms": same_frame["plain_ms"],
@@ -1228,6 +1586,7 @@ def main():
       "source": "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
       "replaces": "kfnet_tpu/kernels/conv3x3.py:57",
       "launches": conv_launches["conv3x3_gn_chain"],
+      "launches_by_phase": phase_launches("conv3x3_gn_chain"),
       "max_abs_err": max(v["y"] for k, v in
                          conv_errs["conv3x3_gn_chain"].items()
                          if k in {str(s) for s in chain_shapes}),

@@ -14,7 +14,10 @@ frames: the fused update kernel (``fps_kernels``, the headline), the
 PyTorch composition of the update (``fps_composition``, the root bench's
 ``fps_xla``) and the conv-kernel configuration (``fps_conv_kernels``:
 SCoordNet ``pallas_fused``, OFlowNet ``pallas_3x3``), each by
-``eval.benchmark.filter_fps``; plus the card's name and power limit from
+``eval.benchmark.filter_fps``; the serving fleet's rows of four streams
+(``fleet_tick_ms_b4``, ``fleet_pipelined_tick_ms_b4``,
+``fleet_pipelined_host_uint8_tick_ms_b4``, ``eval.benchmark.fleet_ticks``)
+in the headline configuration; plus the card's name and power limit from
 ``nvidia-smi``. MFU is the analytic FLOP count over the card's own dense
 bf16 peak (``eval.flops.peak_flops``), null for a card it does not know.
 
@@ -37,9 +40,10 @@ import numpy as np
 import torch
 
 import kfnet_tpu_torch
+from kfnet_tpu_torch import configs
 from kfnet_tpu_torch.eval import flops as flops_lib
-from kfnet_tpu_torch.eval.benchmark import filter_fps
-from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
+from kfnet_tpu_torch.eval.benchmark import filter_fps, fleet_ticks
+from kfnet_tpu_torch.models import kfnet
 
 ASSUMED_TF1_FPS = 15.0
 FRAMES = 32
@@ -49,14 +53,8 @@ TINY = (48, 64)
 
 def tiny_config() -> kfnet.KFNetConfig:
   """The CPU run's config: the widths of the test suite's tiny config."""
-  return kfnet.KFNetConfig(
-      scoordnet=scoordnet.SCoordNetConfig(
-          channels=(8, 8, 16, 16, 16, 16), strides=(1, 2, 1, 2, 1, 2),
-          head_channels=16, compute_dtype="float32"),
-      oflownet=oflownet.OFlowNetConfig(
-          encoder_channels=(8, 8, 16), encoder_strides=(2, 2, 2),
-          search_radius=2, unet_channels=(8, 8, 16),
-          compute_dtype="float32"))
+  return kfnet.KFNetConfig(scoordnet=configs.tiny_scoordnet(),
+                           oflownet=configs.tiny_oflownet())
 
 
 def conv_kernel_config(cfg: kfnet.KFNetConfig) -> kfnet.KFNetConfig:
@@ -96,6 +94,10 @@ def main(argv=None):
   fps_composition = filter_fps(
       dataclasses.replace(cfg, use_fused_kernel=False), params, images)
   fps_conv = filter_fps(conv_kernel_config(cfg), params, images)
+  K = np.asarray([[585.0 * w / W, 0.0, w / 2.0 - 0.5],
+                  [0.0, 585.0 * h / H, h / 2.0 - 0.5],
+                  [0.0, 0.0, 1.0]], np.float32)
+  fleet = fleet_ticks(cfg, params, K, images[0], device=device)
 
   flops_per_frame = flops_lib.filter_step_flops(cfg, h, w)
   peak = flops_lib.peak_flops(device)
@@ -115,6 +117,7 @@ def main(argv=None):
       "fps_composition": fps_composition,
       "fps_conv_kernels": fps_conv,
       "kernel_speedup": fps / fps_composition,
+      **fleet,
       "gflops_per_frame": flops_per_frame / 1e9,
       "mfu": flops_per_frame * fps / peak if peak else None,
       "flop_source": "analytic_conv_count",

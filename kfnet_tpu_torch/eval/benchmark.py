@@ -113,13 +113,40 @@ def tick_ms(reloc, frame, warm: int = 2, k: int = 3, reps: int = 5) -> float:
   return 1e3 * float(np.median(times))
 
 
+FLEET_B = 4
+
+
+def fleet_ticks(cfg, params, K, frame: torch.Tensor, B: int = FLEET_B,
+                device=None) -> dict:
+  """The fleet rows, by ``tick_ms``: a ``FleetRelocalizer`` tick of B
+  slots (filter step and per-slot pose solve, one result copy) on frames
+  on the device (``fleet_tick_ms_b4``), the same pipelined one deep
+  (``fleet_pipelined_tick_ms_b4``), and pipelined on uint8 host frames
+  (``fleet_pipelined_host_uint8_tick_ms_b4``). A failure raises."""
+  from kfnet_tpu_torch.eval.online import FleetRelocalizer
+
+  tick = frame.expand((B,) + tuple(frame.shape)).contiguous()
+  out = {f"fleet_tick_ms_b{B}": tick_ms(
+      FleetRelocalizer(params, cfg, K, batch_size=B, device=device), tick)}
+  pipelined = FleetRelocalizer(params, cfg, K, batch_size=B,
+                               pipeline_depth=1, device=device)
+  out[f"fleet_pipelined_tick_ms_b{B}"] = tick_ms(pipelined, tick, warm=3)
+  pipelined.flush()
+  tick_u8 = (tick.cpu().numpy() * 255).astype(np.uint8)
+  pipelined = FleetRelocalizer(params, cfg, K, batch_size=B,
+                               pipeline_depth=1, device=device)
+  out[f"fleet_pipelined_host_uint8_tick_ms_b{B}"] = tick_ms(
+      pipelined, tick_u8, warm=3)
+  pipelined.flush()
+  return out
+
+
 def run(height: int = 480, width: int = 640, frames: int = 32,
         config=None, reps: int = 3, tick: bool = False, device=None,
         seed: int = 0) -> dict:
-  """Every figure of the JAX package's ``run`` that the port has (its
-  fleet rows wait for ``FleetRelocalizer``), on ``config`` (the default
+  """Every figure of the JAX package's ``run``, on ``config`` (the default
   ``KFNetConfig``) with weights and frames from ``seed``. A failure
-  raises."""
+  raises: no row is recorded as missing."""
   from kfnet_tpu_torch.eval.online import OnlineRelocalizer
   from kfnet_tpu_torch.filter import sequence
   from kfnet_tpu_torch.models import kfnet
@@ -174,13 +201,14 @@ def run(height: int = 480, width: int = 640, frames: int = 32,
 
   # serving: B independent sequences in lockstep, one fused launch a step;
   # frames per second count all B streams
-  B = 4
+  B = FLEET_B
   batch_seqs = images[:, None].expand((frames, B) + tuple(images.shape[1:]))
   tb = bench_fn(lambda im: sequence.run_filter_batched(params, cfg, im),
                 (batch_seqs,), reps=reps)
   results["filtered_fps_batch4"] = B * frames / tb
 
   if tick:
+    results.update(fleet_ticks(cfg, params, K, img, B, device))
     # one stream's online tick: the frame on the device, then as host
     # numpy each tick (f32, then uint8 in the same relocaliser)
     results["online_tick_ms"] = tick_ms(

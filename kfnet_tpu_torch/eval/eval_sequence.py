@@ -70,7 +70,7 @@ def measure_chunked(params, config: kfnet.KFNetConfig, images,
   measurement-only eval. (The JAX package pads the ragged tail to keep one
   compiled shape; PyTorch needs none, so the tail runs as it is.)
   """
-  device = sequence.device_of(params, device)
+  params, device = sequence.placed(params, device)
   T = images.shape[0]
   chunk = max(1, min(int(chunk_size), T))
   zs, Vs = [], []
@@ -131,7 +131,7 @@ def evaluate_sequence(params, config: kfnet.KFNetConfig, images, K,
   generator seeded with ``seed`` (the JAX package splits one key per
   frame), so every run gives the same poses.
   """
-  device = sequence.device_of(params, device)
+  params, device = sequence.placed(params, device)
   images = sequence.frames_to_device(images, device)
   solve = make_pose_solver(K, stride=stride, config=ransac_config)
   gen = torch.Generator(device=device)
@@ -156,7 +156,7 @@ def evaluate_measurement_only(params, config: kfnet.KFNetConfig, images, K,
   single-frame baseline row; fps as in ``evaluate_sequence``. The
   measurement runs in chunks (``measure_chunked``), so ``images`` may be a
   host-resident numpy stack."""
-  device = sequence.device_of(params, device)
+  params, device = sequence.placed(params, device)
   solve = make_pose_solver(K, stride=stride, config=ransac_config)
   gen = torch.Generator(device=device)
 
@@ -182,7 +182,7 @@ def evaluate_sequence_streaming(params, config: kfnet.KFNetConfig,
   solve a chunk at a time, from one generator seeded with ``seed``. Timing
   includes the host transfer, so fps here is a streaming number, not the
   kernel number."""
-  device = sequence.device_of(params, device)
+  params, device = sequence.placed(params, device)
   solve = make_pose_solver(K, stride=stride, config=ransac_config)
   gen = torch.Generator(device=device).manual_seed(seed)
   xs_all, Ps_all, poses = [], [], []

@@ -16,8 +16,8 @@ synchronises the device once. ``graph=False`` runs every step eagerly; the
 CPU always does.
 
 Every function runs on ``device`` when one is given, else on the device of
-the params it is given; frames are moved there. Nothing moves to the CPU
-on its own.
+the params it is given; params and frames are moved there (``placed``).
+Nothing moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -41,16 +41,23 @@ class GraphedStep:
   outputs, overwritten by every replay); ``first`` is the warm-up's, the
   capturing frame's result.
 
+  With a (B,) bool ``mask`` (a batch of B streams), the step also takes a
+  per-slot reset: a slot whose mask is set starts over at this frame, its
+  posterior the frame's measurement (z, V), as ``kfnet.first_step`` gives
+  it, and its aux has ``reset`` (the mask). The mask is a static buffer
+  that each replay copies into, so a reset never captures again.
+
   The graph holds the addresses of the weights and of the conv kernels'
   prepared weight layouts, so it is valid while no held weight has been
   updated in place or replaced (``fits``). A capture that fails raises."""
 
-  def __init__(self, params, config, carry, frame, outputs):
+  def __init__(self, params, config, carry, frame, outputs, mask=None):
     self._params, self._config, self._outputs = params, config, outputs
     self._leaves = L.tree_leaves(params)
     self._weights = self._weight_state()
     self.carry = tuple(t.clone() for t in carry)
     self.frame = frame.clone()
+    self.mask = None if mask is None else mask.clone()
     dev = frame.device
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -74,31 +81,47 @@ class GraphedStep:
     image = kfnet.preprocess_images(self._config, self.frame)
     x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config, x, P,
                                            feat, image)
+    if self.mask is not None:
+      x1, P1 = restart_slots(self.mask, x1, P1, aux)
+      aux = dict(aux, reset=self.mask)
     for buf, new in zip(self.carry, (x1, P1, feat1)):
       buf.copy_(new)
     return self._outputs(aux)
 
-  def fits(self, params, frame, carry) -> bool:
+  def fits(self, params, frame, carry, mask=None) -> bool:
     """Whether a replay computes this frame's step from ``carry`` with
     ``params``: the captured params object, same frame and carry shapes and
-    types, and no held weight updated in place or replaced since capture."""
+    types, a mask where the capture had one, and no held weight updated in
+    place or replaced since capture."""
     return (params is self._params and
+            (mask is None) == (self.mask is None) and
+            (mask is None or mask.shape == self.mask.shape) and
             frame.shape == self.frame.shape and
             frame.dtype == self.frame.dtype and
             all(a.shape == b.shape and a.dtype == b.dtype
                 for a, b in zip(carry, self.carry)) and
             self._weight_state() == self._weights)
 
-  def replay(self, frame, carry):
-    """This frame's step from ``carry``: copied into the carry's buffers
-    first unless it is already there (it is after the graph's own step)."""
+  def replay(self, frame, carry, mask=None):
+    """This frame's step from ``carry`` (and the slots' reset ``mask``):
+    copied into the carry's buffers first unless it is already there (it
+    is after the graph's own step)."""
     if carry is not self.carry:
       for buf, new in zip(self.carry, carry):
         buf.copy_(new)
     self.frame.copy_(frame, non_blocking=True)
+    if mask is not None:
+      self.mask.copy_(mask, non_blocking=True)
     self.graph.replay()
     launches.replayed(self.recorded)
     return self.out
+
+
+def restart_slots(mask, x1, P1, aux):
+  """(x1, P1) with each slot of the (B,) bool ``mask`` replaced by its
+  measurement (aux's z, V): a stream that starts over at this frame."""
+  m = mask[:, None, None, None]
+  return torch.where(m, aux["z"], x1), torch.where(m, aux["V"], P1)
 
 
 # The captured steps of run_filter and its forms, one per key of _graph_key.
@@ -130,11 +153,24 @@ def _captured_step(params, config, carry, frame, return_aux):
   return step, step.first
 
 
-def device_of(params, device) -> torch.device:
-  """``device`` when given (``resolve_device``), else the params'."""
-  if device is not None:
-    return kfnet_tpu_torch.resolve_device(device)
-  return L.tree_leaves(params)[0].device
+def _on(t: torch.Tensor, device: torch.device) -> bool:
+  if t.device.type != device.type:
+    return False
+  if device.index is None and device.type == "cuda":
+    return t.device.index == torch.cuda.current_device()
+  return device.index is None or t.device.index == device.index
+
+
+def placed(params, device):
+  """(params on the device, the device): ``device`` when given, else the
+  params'. Params already there are returned as they are, the same object,
+  so that a kept graph still fits them; others (``convert``'s CPU output,
+  say) are copied there."""
+  device = (kfnet_tpu_torch.resolve_device(device) if device is not None
+            else L.tree_leaves(params)[0].device)
+  if all(_on(p, device) for p in L.tree_leaves(params)):
+    return params, device
+  return L.tree_map(lambda p: p.to(device), params), device
 
 
 def _use_graph(device: torch.device, graph: bool | None) -> bool:
@@ -210,7 +246,7 @@ def run_filter(params, config: kfnet.KFNetConfig, images,
     carry, and (with ``return_aux``) the stacked aux dict of frames
     1..T-1 (of every frame when resuming).
   """
-  device = device_of(params, device)
+  params, device = placed(params, device)
   graph = _use_graph(device, graph)
   frames = kfnet.preprocess_images(config, frames_to_device(images, device))
   lead = None
@@ -287,7 +323,7 @@ def run_filter_chunked_arrays(params, config: kfnet.KFNetConfig,
   out of memory) does not destroy chunk k-1's results: they are yielded
   first, then the exception propagates on the consumer's next ``next()``.
   """
-  device = device_of(params, device)
+  params, device = placed(params, device)
   graph = _use_graph(device, graph)
   copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
@@ -370,7 +406,7 @@ def run_filter_python_loop(params, config: kfnet.KFNetConfig, images,
                            device=None):
   """Reference-shaped eager loop (one step per frame on the raw frame, like
   the TF1 eval driver): the reference of the equivalence tests."""
-  device = device_of(params, device)
+  params, device = placed(params, device)
   images = frames_to_device(images, device)
   x, P, feat = kfnet.first_step(params, config, images[0])
   xs, Ps = [x], [P]

@@ -8,7 +8,10 @@ clip, the warp and the update run as one CUDA kernel
 (``kernels/fused_filter.fused_filter_step``) on the heads' raw outputs, one
 launch for a frame or a (B, ...) batch of frames. The nets' ``conv_impl``
 picks their conv kernels (``kernels/conv3x3.py``); ``kernel_shapes`` lists
-the calls of one frame.
+the calls of one frame. The conv kernels take one frame, so on a batch
+``filter_step`` and ``first_step`` run a kernel net frame by frame (the
+JAX package vmaps these steps over a batch, and each frame takes its
+kernels), and a net of PyTorch's convs on the whole batch at once.
 """
 
 from __future__ import annotations
@@ -80,11 +83,27 @@ def encode(params, config: KFNetConfig, image: torch.Tensor):
 
 
 def flow_from_features(params, config: KFNetConfig, feat_prev, feat_cur):
-  cv = cost_volume(feat_prev, feat_cur, config.oflownet.search_radius)
-  flow, W = oflownet.decode(params["oflownet"], config.oflownet, cv)
+  of = config.oflownet
+  cv = cost_volume(feat_prev, feat_cur, of.search_radius)
+  flow, W = oflownet.output_step(_decode_raw(params, of, cv),
+                                 of.search_radius)
   if config.w_scale != 1.0:
     W = W * config.w_scale
   return flow, W
+
+
+def _frames(net_config, fn, x: torch.Tensor) -> torch.Tensor:
+  """``fn`` of one (..., C) map or frame, or of a (B, h, w, C) batch: at
+  once where the net runs PyTorch's convs, frame by frame where its convs
+  are kernels, which take one frame."""
+  if net_config.conv_impl == "xla" or x.dim() == 3:
+    return fn(x)
+  return torch.stack([fn(f) for f in x.unbind(0)])
+
+
+def _decode_raw(params, of, cv):
+  return _frames(of, lambda c: oflownet.decode_raw(params["oflownet"], of,
+                                                   c), cv)
 
 
 def _kernel_path(config: KFNetConfig) -> bool:
@@ -134,13 +153,13 @@ def filter_step(params, config: KFNetConfig, x_prev, P_prev, feat_prev,
     (x_post, P_post, feat_cur, aux) with aux = dict(flow, W, z, V,
     consistent) and, on the composition, x_prior and P_prior.
   """
-  feat_cur = encode(params, config, image_cur)
+  sc, of = config.scoordnet, config.oflownet
+  feat_cur = _frames(of, lambda im: encode(params, config, im), image_cur)
   if _kernel_path(config):
-    cv = cost_volume(feat_prev, feat_cur, config.oflownet.search_radius)
-    raw_flow = oflownet.decode_raw(params["oflownet"], config.oflownet, cv)
-    raw_coord = scoordnet.apply_raw(params["scoordnet"], config.scoordnet,
-                                    image_cur)
-    sc = config.scoordnet
+    cv = cost_volume(feat_prev, feat_cur, of.search_radius)
+    raw_flow = _decode_raw(params, of, cv)
+    raw_coord = _frames(sc, lambda im: scoordnet.apply_raw(
+        params["scoordnet"], sc, im), image_cur)
     x_post, P_post, consistent, flow, W, z, V = fused_filter.fused_filter_step(
         raw_flow, raw_coord, x_prev.contiguous(), P_prev.contiguous(),
         radius=config.oflownet.search_radius, w_scale=config.w_scale,
@@ -150,7 +169,7 @@ def filter_step(params, config: KFNetConfig, x_prev, P_prev, feat_prev,
     aux = {"flow": flow, "W": W, "z": z, "V": V, "consistent": consistent}
     return x_post, P_post, feat_cur, aux
   flow, W = flow_from_features(params, config, feat_prev, feat_cur)
-  z, V = measure(params, config, image_cur)
+  z, V = _measure_frames(params, config, image_cur)
   x_post, P_post, consistent, prior = _composed_update(
       config, x_prev, P_prev, flow, W, z, V)
   aux = {"flow": flow, "W": W, "z": z, "V": V, "consistent": consistent,
@@ -187,8 +206,17 @@ def kernel_shapes(config: KFNetConfig,
                           + same(of_convs, of.conv_impl)}
 
 
+def _measure_frames(params, config: KFNetConfig, image: torch.Tensor):
+  sc = config.scoordnet
+  raw = _frames(sc, lambda im: scoordnet.apply_raw(params["scoordnet"], sc,
+                                                   im), image)
+  return scoordnet.output_step(raw, sc.coord_scale, sc.coord_offset)
+
+
 def first_step(params, config: KFNetConfig, image: torch.Tensor):
-  """Frame 0: no prior, so the posterior is the measurement."""
-  z, V = measure(params, config, image)
-  feat = encode(params, config, image)
+  """Frame 0 (or a batch of B frames 0): no prior, so the posterior is
+  the measurement."""
+  z, V = _measure_frames(params, config, image)
+  feat = _frames(config.oflownet, lambda im: encode(params, config, im),
+                 image)
   return z, V, feat

@@ -1,8 +1,8 @@
-"""Fixed-budget batched PnP-RANSAC (port of ``kfnet_tpu/pose/ransac.py``,
-DLT solver only).
+"""Fixed-budget batched PnP-RANSAC (port of ``kfnet_tpu/pose/ransac.py``).
 
 Confidence preselection is a top-k, hypotheses are a batched 6-point DLT
-over an (M, 6) index tensor, scoring is one (M, N) reprojection-error
+over an (M, 6) index tensor (or, with ``solver="p3p"``, Grunert's P3P over
+an (M, 3) one, 4 candidates a draw: 4M scored), scoring is one (M, N) reprojection-error
 matrix, and the winner gets a fixed-iteration LM polish on its inliers.
 Every step takes a leading frame dim T, where the JAX package vmaps the
 solve over frames: T frames solve in one pass of launches.
@@ -18,23 +18,30 @@ import dataclasses
 import torch
 
 from kfnet_tpu_torch.core import geometry as geo
-from kfnet_tpu_torch.pose import pnp
+from kfnet_tpu_torch.pose import p3p, pnp
+
+SOLVERS = ("dlt", "p3p")
 
 
 @dataclasses.dataclass(frozen=True)
 class RansacConfig:
   num_hypotheses: int = 256
-  solver: str = "dlt"            # only the 6-point DLT is ported
-  sample_size: int = 6
+  solver: str = "dlt"            # "dlt" (6 points) | "p3p" (3 points, up to
+                                 # 4 candidates a draw)
+  sample_size: int = 6           # the DLT's minimal set (P3P draws 3)
   inlier_threshold_px: float = 10.0
   top_k: int = 2048
   refine_iters: int = 10
   refine_threshold_px: float = 10.0
 
   def __post_init__(self):
-    if self.solver != "dlt":
-      raise NotImplementedError(
-          f"solver={self.solver!r} is not ported yet; use 'dlt'")
+    if self.solver not in SOLVERS:
+      raise ValueError(f"solver={self.solver!r}: expected one of {SOLVERS}")
+
+  @property
+  def draw_size(self) -> int:
+    """Points a hypothesis is drawn from."""
+    return 3 if self.solver == "p3p" else self.sample_size
 
 
 def _take(a, idx):
@@ -89,8 +96,8 @@ def _pick(a, best):
 
 
 def solve_with_indices(uv, X, w, K, idx, config: RansacConfig = RansacConfig()):
-  """Hypothesize from ([T,] M, 6) index sets into each frame's (k,) pool,
-  score, refine; a leading T solves T frames at once.
+  """Hypothesize from ([T,] M, ``config.draw_size``) index sets into each
+  frame's (k,) pool, score, refine; a leading T solves T frames at once.
 
   Args:
     uv: ([T,] k, 2) pixels; X: ([T,] k, 3) world points; w: ([T,] k)
@@ -101,7 +108,12 @@ def solve_with_indices(uv, X, w, K, idx, config: RansacConfig = RansacConfig()):
     mean_inlier_error_px (([T,]) each).
   """
   cfg = config
-  Rs, ts = pnp.dlt_pnp(_take(uv, idx), _take(X, idx), K)   # ([T,] M, 3, 3)
+  if cfg.solver == "p3p":  # 4 candidates a draw: ([T,] 4M, 3, 3)
+    Rs, ts = p3p.p3p_grunert(_take(uv, idx), _take(X, idx), K)
+    Rs = Rs.flatten(-4, -3)
+    ts = ts.flatten(-3, -2)
+  else:
+    Rs, ts = pnp.dlt_pnp(_take(uv, idx), _take(X, idx), K)  # ([T,] M, 3, 3)
   pool = lambda a: a[..., None, :, :]  # against the M hypotheses
   errs = pnp.reprojection_errors(pool(uv), pool(X), K, Rs, ts)  # (.., M, k)
   inl = (errs < cfg.inlier_threshold_px).to(torch.float32) * w[..., None, :]
@@ -129,7 +141,7 @@ def solve_pnp_ransac(pixels, coords, variance, valid, K,
   solve_with_indices."""
   k = min(config.top_k, coords.shape[-2])
   uv, X, w = select_confident(pixels, coords, variance, valid, k)
-  idx = sample_hypotheses(w, config.num_hypotheses, config.sample_size,
+  idx = sample_hypotheses(w, config.num_hypotheses, config.draw_size,
                           generator)
   return solve_with_indices(uv, X, w, K, idx, config)
 

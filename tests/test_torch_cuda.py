@@ -35,6 +35,14 @@ The sequence path's graphed run_filter, its chunked, resumed and batched
 forms and its aux are held against the eager loop at rtol = atol = 1e-3
 with launches counted under replay; the batched pose solve against each
 frame's solve on the same index sets at rtol 1e-4 / atol 1e-6 on T_wc.
+The graphed FleetRelocalizer is held against the eager one at rtol = atol
+= 1e-3 with one capture across a per-slot reset and launches counted
+under replay; P3P on the card on well-conditioned triangles from known
+poses (the CPU's candidate nearest the truth within 1e-4 of it): every
+candidate finite, the nearest within 1e-3 of the truth, as
+tests/test_torch_p3p.py holds the CPU, and within 1e-3 of the CPU's (the
+card rounds otherwise, and float32 P3P amplifies it: 1.7e-4 seen); params
+on the CPU moved to the card by the sequence entry points.
 """
 
 import numpy as np
@@ -734,3 +742,119 @@ def test_batched_pose_solve_matches_per_frame_on_card(cuda):
                                       f32(poses[f])).item() < 0.01
     assert geometry.rotation_error_deg(got["T_wc"][f],
                                        f32(poses[f])).item() < 0.1
+
+
+# This slice on the card: FleetRelocalizer (the filter step one graph for B
+# slots, the reset mask copied into it), P3P without a host sync, params
+# bridged from the CPU moved to the card by the sequence entry points.
+
+@pytest.mark.parametrize("config", ["default", "conv_kernels"])
+def test_graphed_fleet_matches_eager_and_keeps_its_graph(cuda, config):
+  """The graphed fleet against the eager one (rtol = atol = 1e-3, as the
+  graphed relocaliser), a per-slot reset replayed without a capture, one
+  fused launch a tick and kernel_shapes' conv calls times B."""
+  from kfnet_tpu_torch.eval.online import FleetRelocalizer
+  cfg = _small_configs()[config]
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  B, T = 3, 5
+  ticks = np.random.default_rng(7).integers(0, 256, (T, B, 48, 64, 3),
+                                            dtype=np.uint8)
+  resets = [None, None, None, np.array([False, True, False]), None]
+  counters = (tff.fused_filter_step, tc3.conv3x3_same, tc3.conv3x3_gn_chain)
+  first = kfnet.kernel_shapes(cfg, (48, 64, 3), first=True)
+  later = kfnet.kernel_shapes(cfg, (48, 64, 3))
+  runs = {}
+  for graph in (True, False):
+    fleet = FleetRelocalizer(params, cfg, K_SMALL, batch_size=B, device=cuda,
+                             graph=graph)
+    before = [c.launches for c in counters]
+    out = []
+    for t in range(T):
+      out.append(fleet.tick(ticks[t], reset=resets[t]).cpu())
+      if t == 1:
+        step = fleet._step
+    assert [c.launches - b for c, b in zip(counters, before)] == (
+        [T - 1] + [B * (len(first[k]) + (T - 1) * len(later[k]))
+                   for k in ("conv3x3_same", "conv3x3_gn_chain")])
+    runs[graph] = (out, [s.clone() for s in fleet.state])
+    if graph:
+      assert step is not None and fleet._step is step
+  for g, e in zip(runs[True][0], runs[False][0]):
+    np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=1e-3, atol=1e-3)
+    assert g.shape == (B, 19)
+  assert runs[True][0][3][1, 0] == 0.0  # the reset slot's consistent_frac
+  for g, e in zip(runs[True][1], runs[False][1]):
+    np.testing.assert_allclose(g.float().cpu().numpy(),
+                               e.float().cpu().numpy(), rtol=1e-3, atol=1e-3)
+
+
+def _p3p_triangles(n, seed=1):
+  """n well-conditioned triangles seen from known poses, float32: (uv (n,
+  3, 2), X (n, 3, 3), T_cw (n, 4, 4), K), as tests/test_torch_p3p.py
+  makes them."""
+  from kfnet_tpu_torch.core import geometry as geo
+  rng = np.random.default_rng(seed)
+  K = np.asarray([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
+                 np.float32)
+  uvs, Xs, Ts = [], [], []
+  while len(uvs) < n:
+    w = torch.from_numpy((rng.normal(size=3) * 0.4).astype(np.float32))
+    R_wc = geo.axis_angle_to_matrix(w).numpy()
+    t_wc = rng.normal(size=3).astype(np.float32)
+    pc = np.stack([rng.uniform(-1, 1, 3), rng.uniform(-0.8, 0.8, 3),
+                   rng.uniform(1.5, 4, 3)], -1).astype(np.float32)
+    a, b = pc[1] - pc[0], pc[2] - pc[0]
+    if (min(np.linalg.norm(pc[i] - pc[j]) for i, j in ((0, 1), (0, 2), (1, 2)))
+        < 0.5 or np.linalg.norm(np.cross(a, b)) < 0.3):
+      continue
+    uv = pc @ K.T
+    uvs.append(uv[:, :2] / uv[:, 2:])
+    Xs.append(pc @ R_wc.T + t_wc)
+    T_cw = np.eye(4, dtype=np.float32)
+    T_cw[:3, :3], T_cw[:3, 3] = R_wc.T, -R_wc.T @ t_wc
+    Ts.append(T_cw)
+  return (np.stack(uvs).astype(np.float32), np.stack(Xs).astype(np.float32),
+          np.stack(Ts), K)
+
+
+def _nearest_candidate(Rs, ts, T_cw):
+  err = [np.abs(Rs[i] - T_cw[:3, :3]).max() + np.abs(ts[i] - T_cw[:3, 3]).max()
+         for i in range(Rs.shape[0])]
+  i = int(np.argmin(err))
+  return i, err[i]
+
+
+def test_p3p_on_card_matches_cpu(cuda):
+  from kfnet_tpu_torch.pose import p3p
+  n = 64
+  uv, X, T_cw, K = _p3p_triangles(n)
+  t = torch.from_numpy
+  gR, gt = p3p.p3p_grunert(t(uv).to(cuda), t(X).to(cuda), t(K).to(cuda))
+  assert torch.isfinite(gR).all() and torch.isfinite(gt).all()
+  gR, gt = gR.cpu().numpy(), gt.cpu().numpy()
+  wR, wt = (a.numpy() for a in p3p.p3p_grunert(t(uv), t(X), t(K)))
+  held = 0
+  for k in range(n):
+    wi, werr = _nearest_candidate(wR[k], wt[k], T_cw[k])
+    if werr > 1e-4:  # not well conditioned in float32
+      continue
+    gi, gerr = _nearest_candidate(gR[k], gt[k], T_cw[k])
+    assert gerr < 1e-3, (k, gerr)
+    np.testing.assert_allclose(gR[k, gi], wR[k, wi], atol=1e-3)
+    np.testing.assert_allclose(gt[k, gi], wt[k, wi], atol=1e-3)
+    held += 1
+  assert held >= n // 2, held
+
+
+def test_sequence_entry_points_move_cpu_params_to_the_card(cuda):
+  from kfnet_tpu_torch.filter import sequence
+  cfg = _small_configs()["default"]
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  cpu_params = L.tree_map(lambda p: p.cpu(), params)
+  frames = np.random.default_rng(9).integers(0, 256, (3, 48, 64, 3),
+                                             dtype=np.uint8)
+  xs, Ps, _ = sequence.run_filter(cpu_params, cfg, frames, device="cuda")
+  want, _, _ = sequence.run_filter(params, cfg, frames)
+  assert xs.device.type == "cuda" and torch.equal(xs, want)
+  same, _ = sequence.placed(params, "cuda")
+  assert same is params

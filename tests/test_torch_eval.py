@@ -246,10 +246,24 @@ def test_benchmark_run_on_the_cpu():
               "pose_solve_ms_per_frame", "streaming_fps_device",
               "streaming_fps", "streaming_fps_host_uint8",
               "filtered_fps_batch4", "online_tick_ms",
-              "online_host_tick_ms", "online_host_uint8_tick_ms"):
+              "online_host_tick_ms", "online_host_uint8_tick_ms",
+              "fleet_tick_ms_b4", "fleet_pipelined_tick_ms_b4",
+              "fleet_pipelined_host_uint8_tick_ms_b4"):
     assert np.isfinite(res[key]) and res[key] >= 0, key
   assert res["gpu"] is None and res["device"] == "cpu"
-  assert not any(k.startswith("fleet") for k in res)
+
+
+def test_bench_configs_on_the_cpu():
+  from kfnet_tpu_torch.bench import tiny_config
+  from kfnet_tpu_torch.tools import bench_configs
+  rows = bench_configs.run_all("cpu", 48, 64, 4, tiny_config(), tag="t",
+                               reps=1)
+  assert [r["config"] for r in rows] == ["default", "conv_kernels"]
+  assert rows[1]["conv_impl"] == ["pallas_fused", "pallas_3x3"]
+  for r in rows:
+    assert r["tag"] == "t" and r["gpu"] is None
+    for key in ("filtered_fps_batch4", "online_tick_ms", "fleet_tick_ms_b4"):
+      assert np.isfinite(r[key]) and r[key] > 0, key
 
 
 def _bench(*args, **env):
@@ -269,7 +283,9 @@ def test_bench_cpu_prints_one_json_line():
   for key in ("metric", "value", "unit", "vs_baseline", "frames",
               "gflops_per_frame", "mfu", "flop_source",
               "peak_tflops_assumed", "baseline_note", "fps_kernels",
-              "fps_composition", "fps_conv_kernels", "gpu", "power_limit"):
+              "fps_composition", "fps_conv_kernels", "gpu", "power_limit",
+              "fleet_tick_ms_b4", "fleet_pipelined_tick_ms_b4",
+              "fleet_pipelined_host_uint8_tick_ms_b4"):
     assert key in out, key
   assert out["metric"].endswith("_tiny_cpu") and out["frames"] == 32
   assert out["value"] == out["fps_kernels"] > 0

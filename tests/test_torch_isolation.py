@@ -74,6 +74,11 @@ def test_package_import_leaves_jax_out():
           "import kfnet_tpu_torch.pose.metrics;"
           "import kfnet_tpu_torch.utils.timing;"
           "import kfnet_tpu_torch.bench;"
+          "import kfnet_tpu_torch.pretrained, kfnet_tpu_torch.configs;"
+          "import kfnet_tpu_torch.data.synthetic, kfnet_tpu_torch.data.labels;"
+          "import kfnet_tpu_torch.pose.p3p, kfnet_tpu_torch.pose.smoothing;"
+          "import kfnet_tpu_torch.tools.batch_invariance;"
+          "import kfnet_tpu_torch.tools.bench_configs;"
           f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules];"
           "print(bad); sys.exit(1 if bad else 0)")
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

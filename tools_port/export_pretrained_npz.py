@@ -1,0 +1,62 @@
+"""Export the shipped synthetic weights (orbax, under
+``artifacts/pretrained_synthetic``) to the ``.npz`` + ``meta.json`` stages
+that ``kfnet_tpu_torch.pretrained`` reads:
+
+    JAX_PLATFORMS=cpu python tools_port/export_pretrained_npz.py
+
+Runs on the CPU with JAX. Each stage is read with
+``kfnet_tpu.utils.checkpoint.load_params_values`` and ``load_meta`` and
+written with ``kfnet_tpu_torch.utils.checkpoint.save_params`` in the JAX
+package's layouts (NHWC / HWIO) and saved dtypes, so that
+``kfnet_tpu_torch.convert.params_from_jax`` stays the one place where a
+layout changes. The full-size exports (``artifacts/pretrained_full*``,
+tens of MB each) are not exported. This script lives outside both
+packages: it is the one place that imports both.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+SRC = os.path.join(ROOT, "artifacts", "pretrained_synthetic")
+DST = os.path.join(ROOT, "kfnet_tpu_torch", "assets", "pretrained_synthetic")
+STAGES = ("stage3_sceneA", "stage1_sceneA", "stage2_indoor")
+
+
+def export(src: str = SRC, dst: str = DST, stages=STAGES) -> list[str]:
+  """Write every stage of ``src`` to ``dst``; returns the written dirs."""
+  import jax
+  import numpy as np
+
+  from kfnet_tpu.utils import checkpoint as jax_ckpt
+  from kfnet_tpu_torch.utils import checkpoint as npz_ckpt
+
+  written = []
+  for stage in stages:
+    params = jax_ckpt.load_params_values(os.path.join(src, stage))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    meta = jax_ckpt.load_meta(os.path.join(src, stage))
+    out = os.path.join(dst, stage)
+    npz_ckpt.save_params(out, params, meta)
+    written.append(out)
+  return written
+
+
+def main(argv=None):
+  p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument("--src", default=SRC)
+  p.add_argument("--dst", default=DST)
+  args = p.parse_args(argv)
+  import jax
+  jax.config.update("jax_platforms", "cpu")
+  for out in export(args.src, args.dst):
+    print(out)
+
+
+if __name__ == "__main__":
+  main()
