@@ -143,9 +143,47 @@ Phases, one line each, with their seconds:
      outputs), and cuDNN's conv at each call's shape, as device time from
      a CUDA graph of 20 launches (kfnet_tpu_torch/tools/conv_tiles.py;
      the kernels line's alone_ms, library_alone_ms); the bounds; the pose
-     solve.
+     solve;
+  9. train: the three training stages at full width (configs.full_scoordnet
+     / full_oflownet, bf16) on 16 640x480 frames rendered on the card by
+     data/synthetic.py, each through fit_on_device (Adam, lr TRAIN_LR):
+     stage 1 (scoordnet_objective, batch 8, 6 steps in chunks of 3), stage
+     2 (oflownet_objective, flow_reg 0.01, 8 pairs, 6 steps), stage 3a
+     (kfnet_window_objective with the fused kernel and remat, T = 4, batch
+     1, 3 steps: the fused update launches once in each step's forward and
+     once more in remat's recompute, 3 x (T-1) x 2 = 18; its backward is
+     autograd through the plain version and launches nothing), stage 3b
+     (kfnet_objective on the composition, batch 2 pairs, 2 steps); each
+     stage's ms a step (CUDA events, the median over the steps after the
+     first), frames/s and torch.cuda.max_memory_allocated. Checks: every
+     loss, last grad norm and trained param finite; the loss of one fixed
+     stage-1 batch after 8 steps of trainer.fit (lr FIXED_LR) below the
+     first; the window objective with the kernel, with the kernel's plain
+     version in its place and with the composition, on the same params and
+     window, with deterministic algorithms (cuDNN deterministic and
+     torch.use_deterministic_algorithms): loss within KERNEL_LOSS_RTOL
+     relative, each grad leaf within KERNEL_GRAD_OF_MAX of its largest
+     |value| against the plain version (whose autograd is the kernel's
+     backward) and within one bf16 step (BF16_STEP) against the
+     composition (another order of the float32 filter arithmetic, which
+     the nets' bf16 weight grads round otherwise), T - 1 launches; by
+     default the backward's atomics differ from run to run: recorded, with
+     the kernel run twice;
+     remat against none at T = 3 at tests/test_train.py:101-104's
+     tolerances with deterministic algorithms (the default recorded); a
+     checkpoint at step 3 resumed to step 6 bit-equal to 6 steps
+     uninterrupted with deterministic algorithms (the default's gap
+     recorded);
+     the tiny float32 configs' loss and grads (stages 1 and 2, and the
+     window objective at T = 3, B = 2) on the card against the CPU (GOLDEN,
+     GRAD_*; the small configs recorded beside them, with how far the
+     CPU's own grads move under a 1e-6 relative nudge of the params); the
+     trained weights through evaluate_sequence (graphed) against
+     run_filter_python_loop (eager) on 8 held-out frames at TOL_PATH, 14
+     fused launches.
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
-nothing under artifacts/; writes only the kernel build directory.
+nothing under artifacts/; writes only the kernel build directory and the
+training checkpoints of phase 9, in a temporary directory it removes.
 """
 
 import contextlib
@@ -155,6 +193,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import unittest.mock as mock
 import warnings
@@ -197,7 +236,24 @@ FLEET_RESET = 3             # the tick at which slot 2 starts over
 # the batched pose solve against each frame's solve on the same indices,
 # T_wc: rtol, and an atol for its entries near 0
 POSE_RTOL, POSE_ATOL = 1e-4, 1e-6
-FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "tensorstore", "cv2")
+FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "optax", "tensorstore", "cv2")
+# phase "train" (the stages at full width, 640x480, on a rendered sequence)
+TRAIN_FRAMES = 16           # frames of the training sequence
+TRAIN_B, TRAIN_STEPS, TRAIN_CHUNK = 8, 6, 3  # stages 1 and 2
+WIN_T, WIN_B, WIN_STEPS = 4, 1, 3            # stage 3a: BPTT windows, remat
+PAIR_B, PAIR_STEPS = 2, 2                    # stage 3b: pairs, composition
+TRAIN_LR = 3e-4             # the demo's full-size rate
+FIXED_LR = 1e-4             # one batch 8 times: the reference recipe's rate
+                            # (OptimizerConfig; 3e-4 oscillated there)
+# the window objective, the fused kernel against the composition: the loss
+# relative, each grad leaf's largest |difference| over its largest |value|
+KERNEL_LOSS_RTOL, KERNEL_GRAD_OF_MAX = 1e-4, 1e-3
+# remat against none: tests/test_train.py:101-104
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL, REMAT_GRAD_ATOL = 1e-6, 2e-3, 1e-5
+# card against CPU, float32: the golden loss tolerance; grads within rtol
+# plus atol plus a share of the leaf's largest |value| (tests/test_torch_train.py)
+GOLDEN = dict(rtol=5e-4, atol=5e-5)
+GRAD_RTOL, GRAD_ATOL, GRAD_LEAF = 2e-3, 1e-5, 5e-4
 
 
 def say(phase, t0, **fields):
@@ -905,6 +961,353 @@ def fleet_phase(dev, params, configs_, cfg32, K, fticks, resets, first, later,
   return fleet_checks, fleet_times
 
 
+class StepTimer:
+  """A loss function that times the training steps calling it: a CUDA
+  event at the start of each call (one call a step, also under remat,
+  whose recompute does not call it again) and each call's loss kept.
+  ``step_ms()`` after ``stop()``: each step's ms, start to next start (the
+  last to ``stop``), device time of everything the step enqueued."""
+
+  def __init__(self, loss_fn):
+    self.loss_fn, self.events, self.losses = loss_fn, [], []
+
+  def _mark(self):
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    self.events.append(ev)
+
+  def __call__(self, params, batch):
+    self._mark()
+    loss, metrics = self.loss_fn(params, batch)
+    self.losses.append(loss.detach())
+    return loss, metrics
+
+  def stop(self):
+    import torch
+    self._mark()
+    torch.cuda.synchronize()
+
+  def step_ms(self):
+    return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def tree_finite(tree):
+  import torch
+  from kfnet_tpu_torch.nn import layers as L
+  return all(bool(torch.isfinite(p).all()) for p in L.tree_leaves(tree))
+
+
+def grads_gap(got, want):
+  """The largest |difference| of each grad leaf over that leaf's largest
+  |value| in ``want``: the worst leaf's."""
+  return max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+             for g, w in zip(got, want))
+
+
+def grads_within(got, want, rtol, atol, leaf=0.0):
+  """Every element of every leaf within rtol·|want| + atol + leaf·(the
+  leaf's largest |want|)."""
+  import torch
+  return all(bool(torch.all((g - w).abs() <= rtol * w.abs() + atol
+                            + leaf * w.abs().max()))
+             for g, w in zip(got, want))
+
+
+def states_gap(a, b):
+  """(bit-equal, largest |difference|) of two TrainStates' params and
+  moments, and whether their counters agree."""
+  import torch
+  from kfnet_tpu_torch.nn import layers as L
+  la = L.tree_leaves([a.params, a.opt_state.mu, a.opt_state.nu])
+  lb = L.tree_leaves([b.params, b.opt_state.mu, b.opt_state.nu])
+  return {"bit_equal": all(torch.equal(x, y) for x, y in zip(la, lb)),
+          "max_abs": max((x - y).abs().max().item() for x, y in zip(la, lb)),
+          "steps": [a.step, b.step],
+          "counts": [a.opt_state.count, b.opt_state.count]}
+
+
+@contextlib.contextmanager
+def deterministic(on):
+  """cuDNN deterministic and PyTorch's deterministic algorithms (gather's
+  and repeat_interleave's backward without atomics) when ``on``; an op
+  with no deterministic form warns rather than raises."""
+  import torch
+  was = (torch.backends.cudnn.deterministic,
+         torch.are_deterministic_algorithms_enabled(),
+         torch.is_deterministic_algorithms_warn_only_enabled())
+  torch.backends.cudnn.deterministic = on
+  torch.use_deterministic_algorithms(on, warn_only=True)
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.deterministic = was[0]
+    torch.use_deterministic_algorithms(was[1], warn_only=was[2])
+
+
+def train_phase(dev, wrappers):
+  """Phase "train": the three stages at full width (bf16, 640x480) on a
+  training sequence rendered on the card, each through fit_on_device, and
+  the checks of the training path (module docstring, phase 9). Returns
+  (stages, checks); the caller asserts."""
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch import configs
+  from kfnet_tpu_torch.data import labels, synthetic
+  from kfnet_tpu_torch.eval import eval_sequence
+  from kfnet_tpu_torch.filter import sequence
+  from kfnet_tpu_torch.kernels import fused_filter as ff
+  from kfnet_tpu_torch.models import kfnet
+  from kfnet_tpu_torch.tools.demo import label_maps, render_frames
+  from kfnet_tpu_torch.train import device_fit, objectives, trainer
+  from kfnet_tpu_torch.utils import logging as log_lib
+
+  seq = synthetic.make_sequence(TRAIN_FRAMES, height=IMG[0], width=IMG[1],
+                                seed=0, device=dev)
+  K = seq["K"]
+  coords, valid = label_maps(seq["depths"], seq["poses"], K)
+  mean, std = labels.scene_statistics([coords.cpu().numpy()],
+                                      [valid.cpu().numpy()])
+  cfg = kfnet.KFNetConfig(scoordnet=configs.full_scoordnet(mean, std),
+                          oflownet=configs.full_oflownet())
+  pair_cfg = dataclasses.replace(cfg, use_fused_kernel=False)
+  params = kfnet.init(0, cfg, IMG, device=dev)
+  images = seq["images"]
+  frames = {"image": images, "coords": coords, "valid": valid}
+  pairs = {"image_prev": images[:-1], "image": images[1:],
+           "coords_prev": coords[:-1], "valid_prev": valid[:-1],
+           "coords": coords[1:], "valid": valid[1:]}
+  windows = {"images": images, "coords": coords, "valid": valid}
+  joint_pairs = {k: pairs[k] for k in ("image_prev", "image", "coords",
+                                       "valid")}
+  sc_loss = objectives.scoordnet_objective(cfg.scoordnet)
+  stages = {}
+
+  def stage(name, loss_fn, p, data, steps, batch, frames_per_row, **kw):
+    timer = StepTimer(loss_fn)
+    log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (state, m), n = counted(wrappers, lambda: device_fit.fit_on_device(
+        timer, p, data, steps, TRAIN_LR, batch=batch, chunk=TRAIN_CHUNK,
+        tag=name, log=log.append, device=dev, **kw))
+    timer.stop()
+    ms = timer.step_ms()
+    med = float(np.median(ms[1:]))
+    stages[name] = {
+        "steps": steps, "batch": batch, "frames_per_row": frames_per_row,
+        "ms_per_step": med, "ms_steps": ms,
+        "frames_per_s": batch * frames_per_row * 1e3 / med,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "losses": [x.item() for x in timer.losses],
+        "grad_norm_last": m["grad_norm"].item(),
+        "params_finite": tree_finite(state.params), "launches": n,
+        "log": log}
+    return state
+
+  s1 = stage("stage1_scoordnet", sc_loss, params["scoordnet"], frames,
+             TRAIN_STEPS, TRAIN_B, 1, seed=0)
+  s2 = stage("stage2_oflownet",
+             objectives.oflownet_objective(cfg.oflownet, flow_reg_weight=0.01),
+             params["oflownet"], pairs, TRAIN_STEPS, TRAIN_B, 2, seed=1)
+  joint = {"scoordnet": s1.params, "oflownet": s2.params}
+  s3 = stage("stage3a_window",
+             objectives.kfnet_window_objective(cfg, remat=True), joint,
+             windows, WIN_STEPS, WIN_B, WIN_T, seed=2, window=WIN_T)
+  s4 = stage("stage3b_pairs", objectives.kfnet_objective(pair_cfg),
+             s3.params, joint_pairs, PAIR_STEPS, PAIR_B, 2, seed=3)
+  checks = {"train_launches_expected": WIN_STEPS * (WIN_T - 1) * 2}
+  checks["finite"] = all(
+      np.isfinite(s["losses"]).all() and np.isfinite(s["grad_norm_last"])
+      and s["params_finite"] for s in stages.values())
+
+  # one fixed stage-1 batch, 8 steps of fit: the loss goes down
+  class Rows(log_lib.MetricLogger):
+    def __init__(self):
+      super().__init__(stream=open(os.devnull, "w"))
+      self.rows = []
+
+    def log_metrics(self, step, metrics):
+      self.rows.append(metrics["loss"])
+
+  fixed = device_fit.gather(frames, torch.arange(TRAIN_B, device=dev))
+  rows = Rows()
+  trainer.fit(sc_loss, params["scoordnet"], iter([fixed] * 8),
+              trainer.OptimizerConfig(learning_rate=FIXED_LR),
+              trainer.TrainLoopConfig(max_steps=8, log_every=1),
+              logger=rows, device=dev)
+  checks["fixed_batch_losses"] = rows.rows
+  checks["fixed_batch_loss_falls"] = rows.rows[-1] < rows.rows[0]
+
+  # the window objective with the fused kernel, with the kernel's plain
+  # version in its place, and with the composition (use_fused_kernel off),
+  # same params and window, held with deterministic algorithms. The plain
+  # version's backward is the kernel's own (autograd through it), so the
+  # two are held at KERNEL_*; the composition's backward orders the same
+  # float32 arithmetic otherwise, and the nets' bf16 weight grads round
+  # differently: held within one bf16 step (BF16_STEP) of each leaf's
+  # largest |value|. By default the backward's atomics (the warp's
+  # gather) differ from run to run: recorded, with the kernel run twice.
+  win = device_fit.gather(windows, torch.arange(WIN_T, device=dev)[None])
+  on, off = (objectives.kfnet_window_objective(c) for c in (cfg, pair_cfg))
+  kernel = {"tol": {"loss_rel": KERNEL_LOSS_RTOL,
+                    "plain_grads_of_leaf_max": KERNEL_GRAD_OF_MAX,
+                    "composition_grads_of_leaf_max": BF16_STEP}}
+  for det in (True, False):
+    with deterministic(det):
+      (l_on, _, g_on), n_on = counted(
+          wrappers, lambda: trainer.value_and_grad(on, s3.params, win))
+      l_on2, _, g_on2 = trainer.value_and_grad(on, s3.params, win)
+      with mock.patch.object(ff, "fused_filter_step",
+                             ff.fused_filter_step_reference):
+        l_pl, _, g_pl = trainer.value_and_grad(on, s3.params, win)
+      l_off, _, g_off = trainer.value_and_grad(off, s3.params, win)
+    row = {"loss_kernel": l_on.item(), "loss_plain": l_pl.item(),
+           "loss_composition": l_off.item(),
+           "plain_loss_rel": abs((l_on - l_pl) / l_pl).item(),
+           "plain_grads_of_leaf_max": grads_gap(g_on, g_pl),
+           "composition_loss_rel": abs((l_on - l_off) / l_off).item(),
+           "composition_grads_of_leaf_max": grads_gap(g_on, g_off),
+           "kernel_twice_loss_rel": abs((l_on2 - l_on) / l_on).item(),
+           "kernel_twice_grads_of_leaf_max": grads_gap(g_on2, g_on),
+           "launches": n_on["fused_warp_kalman"]}
+    row["held"] = (row["plain_loss_rel"] <= KERNEL_LOSS_RTOL and
+                   row["plain_grads_of_leaf_max"] <= KERNEL_GRAD_OF_MAX and
+                   row["composition_loss_rel"] <= KERNEL_LOSS_RTOL and
+                   row["composition_grads_of_leaf_max"] <= BF16_STEP and
+                   row["launches"] == WIN_T - 1)
+    kernel["deterministic" if det else "default"] = row
+  checks["kernel_vs_plain_and_composition"] = kernel
+
+  # remat against no remat at T = 3, with deterministic algorithms (held)
+  # and without (recorded)
+  win3 = device_fit.gather(windows, torch.arange(3, device=dev)[None])
+  remat = {}
+  for det in (True, False):
+    with deterministic(det):
+      l_r, _, g_r = trainer.value_and_grad(
+          objectives.kfnet_window_objective(cfg, remat=True), s3.params, win3)
+      l_n, _, g_n = trainer.value_and_grad(
+          objectives.kfnet_window_objective(cfg), s3.params, win3)
+    rel = abs((l_r - l_n) / l_n).item()
+    remat["deterministic" if det else "default"] = {
+        "loss_rel": rel, "grads_of_leaf_max": grads_gap(g_r, g_n),
+        "bit_equal": bool(torch.equal(l_r, l_n)) and all(
+            torch.equal(a, b) for a, b in zip(g_r, g_n)),
+        "held": rel <= REMAT_LOSS_RTOL and grads_within(
+            g_r, g_n, REMAT_GRAD_RTOL, REMAT_GRAD_ATOL)}
+  checks["remat_vs_none_T3"] = remat
+
+  # a checkpoint at step 3 resumed to 6 against 6 steps uninterrupted:
+  # bit for bit with deterministic algorithms (cuDNN's included), the gap
+  # recorded without
+  rng = np.random.default_rng(4)
+  batches = [device_fit.gather(frames, torch.as_tensor(
+      rng.integers(0, TRAIN_FRAMES, TRAIN_B), device=dev)) for _ in range(6)]
+  opt_cfg = trainer.OptimizerConfig(learning_rate=TRAIN_LR)
+  quiet = log_lib.MetricLogger(stream=open(os.devnull, "w"))
+  resume = {}
+  for det in (True, False):
+    with deterministic(det), tempfile.TemporaryDirectory() as ck:
+      run = lambda bs, **loop: trainer.fit(
+          sc_loss, params["scoordnet"], iter(bs), opt_cfg,
+          trainer.TrainLoopConfig(log_every=1000, checkpoint_every=3,
+                                  keep_checkpoints=1, **loop),
+          logger=quiet, device=dev)
+      whole = run(batches, max_steps=6)
+      run(batches[:3], max_steps=3, checkpoint_dir=ck)
+      resumed = run(batches[3:], max_steps=6, checkpoint_dir=ck)
+    resume["deterministic" if det else "default"] = states_gap(resumed, whole)
+  checks["resume_vs_uninterrupted"] = resume
+
+  # float32 configs: one step's loss and grads, card against CPU; the
+  # tiny configs held, the small ones recorded (their grads have a kink at
+  # these weights: the CPU's own move by ~9% of a leaf's largest value
+  # under a 1e-6 relative perturbation of the params, cpu_floor)
+  checks["float32_card_vs_cpu"] = {
+      "tiny_48x64": float32_card_vs_cpu(dev, "tiny", 48, 64),
+      "small_96x128": float32_card_vs_cpu(dev, "small", 96, 128)}
+
+  # the trained weights served: evaluate_sequence (graphed) against the
+  # eager loop
+  test_poses = torch.as_tensor(synthetic.orbit_trajectory(8, seed=99),
+                               device=dev)
+  test_imgs, _ = render_frames(synthetic.make_scene(0), test_poses, K,
+                               IMG[0], IMG[1])
+  res, n_eval = counted(wrappers, lambda: eval_sequence.evaluate_sequence(
+      s4.params, cfg, test_imgs, K.cpu().numpy(), timing_reps=1))
+  eager = sequence.run_filter_python_loop(s4.params, cfg, test_imgs)
+  served = close_to((torch.from_numpy(res.coords).to(dev),
+                     torch.from_numpy(res.covariance).to(dev)), eager)
+  served["launches"] = n_eval["fused_warp_kalman"]
+  served["launches_expected"] = 2 * (8 - 1)  # warm-up and timed run
+  checks["served_graph_vs_eager"] = served
+  return stages, checks
+
+
+def float32_card_vs_cpu(dev, scale, h, w):
+  """The float32 configs of ``configs.NET_SCALES[scale]`` at h x w (frames
+  rendered on the CPU): the stage-1 objective (4 frames), the stage-2 one
+  (4 pairs) and the window objective (B = 2, T = 3; the fused kernel on
+  the card, its plain version on the CPU). ``within``: the loss at the
+  golden tolerance and the grads within GRAD_RTOL plus GRAD_ATOL and
+  GRAD_LEAF of the leaf's largest |value| (one framework on two devices
+  summing in other orders). ``cpu_floor``: how far the CPU's own grads
+  move (of each leaf's largest |value|, the worst leaf) when every param
+  is scaled by 1 + 1e-6·N(0, 1), the size of the card's rounding
+  differences."""
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch import configs
+  from kfnet_tpu_torch.data import labels, synthetic
+  from kfnet_tpu_torch.models import kfnet
+  from kfnet_tpu_torch.nn import layers as L
+  from kfnet_tpu_torch.tools.demo import label_maps
+  from kfnet_tpu_torch.train import objectives, trainer
+
+  seq = synthetic.make_sequence(6, height=h, width=w, seed=0, device="cpu")
+  coords, valid = label_maps(seq["depths"], seq["poses"], seq["K"])
+  mean, std = labels.scene_statistics([coords.numpy()], [valid.numpy()])
+  sc_net, of_net = configs.NET_SCALES[scale]
+  cfg = kfnet.KFNetConfig(scoordnet=sc_net(mean, std), oflownet=of_net())
+  cpu_params = kfnet.init(0, cfg, (h, w, 3), device="cpu")
+  card_params = L.tree_map(lambda p: p.to(dev), cpu_params)
+  cases = {
+      "scoordnet": (objectives.scoordnet_objective(cfg.scoordnet),
+                    "scoordnet", {"image": seq["images"][:4],
+                                  "coords": coords[:4], "valid": valid[:4]}),
+      "oflownet": (objectives.oflownet_objective(cfg.oflownet, 0.01),
+                   "oflownet", {"image_prev": seq["images"][:4],
+                                "image": seq["images"][1:5],
+                                "coords_prev": coords[:4],
+                                "valid_prev": valid[:4],
+                                "coords": coords[1:5], "valid": valid[1:5]}),
+      "window_T3_B2": (objectives.kfnet_window_objective(cfg), None,
+                       {"images": torch.stack([seq["images"][:3],
+                                               seq["images"][3:]]),
+                        "coords": torch.stack([coords[:3], coords[3:]]),
+                        "valid": torch.stack([valid[:3], valid[3:]])})}
+  out = {}
+  for name, (loss_fn, sub, batch) in cases.items():
+    pick = (lambda p: p[sub]) if sub else (lambda p: p)
+    lc, _, gc = trainer.value_and_grad(loss_fn, pick(cpu_params), batch)
+    lg, _, gg = trainer.value_and_grad(
+        loss_fn, pick(card_params),
+        {k: v.to(dev) for k, v in batch.items()})
+    gg = [g.cpu() for g in gg]
+    noise = torch.Generator().manual_seed(1)
+    nudged = L.tree_map(lambda p: p * (1 + 1e-6 * torch.randn(
+        p.shape, generator=noise)), pick(cpu_params))
+    _, _, gn = trainer.value_and_grad(loss_fn, nudged, batch)
+    out[name] = {"loss_card": lg.item(), "loss_cpu": lc.item(),
+                 "grads_of_leaf_max": grads_gap(gg, gc),
+                 "cpu_floor": grads_gap(gn, gc),
+                 "within": bool(np.isclose(lg.item(), lc.item(), **GOLDEN))
+                           and grads_within(gg, gc, GRAD_RTOL, GRAD_ATOL,
+                                            GRAD_LEAF)}
+  return out
+
+
 def main():
   t_all = time.time()
   import numpy as np
@@ -1535,6 +1938,51 @@ def main():
       served_frame_alone=alone,
       total_seconds=round(time.time() - t_all, 1))
 
+  # 9. training at full width
+  t0 = time.time()
+  train_stages, train_checks = train_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("train", t0, gpu=gpu, nvidia_smi=smi, stages=train_stages,
+      **train_checks, total_seconds=round(time.time() - t_all, 1))
+  train_launches = train_stages["stage3a_window"]["launches"]
+  if train_launches["fused_warp_kalman"] != train_checks[
+      "train_launches_expected"]:
+    raise AssertionError(f"stage 3a fused launches {train_launches}, "
+                         f"expected {train_checks['train_launches_expected']}")
+  if any(n for s in train_stages.values() for k, n in s["launches"].items()
+         if k != "fused_warp_kalman") or train_stages["stage3b_pairs"][
+             "launches"]["fused_warp_kalman"]:
+    raise AssertionError(f"training launched another kernel: "
+                         f"{ {k: s['launches'] for k, s in train_stages.items()} }")
+  if not train_checks["finite"]:
+    raise AssertionError(f"a training loss, grad norm or param is not "
+                         f"finite: {train_stages}")
+  if not train_checks["fixed_batch_loss_falls"]:
+    raise AssertionError(f"the loss on one batch did not fall: "
+                         f"{train_checks['fixed_batch_losses']}")
+  if not train_checks["kernel_vs_plain_and_composition"]["deterministic"][
+      "held"]:
+    raise AssertionError(f"train kernel against plain and composition: "
+                         f"{train_checks['kernel_vs_plain_and_composition']}")
+  if not train_checks["served_graph_vs_eager"]["held"]:
+    raise AssertionError(f"trained weights served: "
+                         f"{train_checks['served_graph_vs_eager']}")
+  if not train_checks["remat_vs_none_T3"]["deterministic"]["held"]:
+    raise AssertionError(f"remat off no remat: "
+                         f"{train_checks['remat_vs_none_T3']}")
+  resumed = train_checks["resume_vs_uninterrupted"]["deterministic"]
+  if not (resumed["bit_equal"] and resumed["steps"] == [6, 6]
+          and resumed["counts"] == [6, 6]):
+    raise AssertionError(f"resumed run off the uninterrupted one: "
+                         f"{train_checks['resume_vs_uninterrupted']}")
+  served = train_checks["served_graph_vs_eager"]
+  if served["launches"] != served["launches_expected"]:
+    raise AssertionError(f"trained weights served: {served}")
+  if not all(c["within"] for c in
+             train_checks["float32_card_vs_cpu"]["tiny_48x64"].values()):
+    raise AssertionError(f"card off the CPU: "
+                         f"{train_checks['float32_card_vs_cpu']}")
+
   bad = [m for m in FORBIDDEN if m in sys.modules]
   if bad:
     raise AssertionError(f"imported {bad}")
@@ -1545,6 +1993,7 @@ def main():
               "sequence_default": forms["graphed"]["launches"],
               "sequence_conv_kernels": conv_forms["graphed"]["launches"],
               "pretrained": pre["launches"],
+              "train": train_launches,
               **{f"fleet_{k}": v["launches"]
                  for k, v in fleet_checks.items()}}
   phase_launches = lambda k: {p: v[k] for p, v in by_phase.items()}

@@ -12,6 +12,10 @@ of torch tensors in the port's layouts:
     (see ``nn.layers.conv_transpose``);
   * GroupNorm ``scale`` / ``bias``, conv ``b`` and the weight-standardized
     conv's ``gain`` are copied as they are.
+
+``params_to_jax`` is its inverse: the port's params as the JAX package's
+tree of float32 numpy arrays (what ``utils/checkpoint.export_params``
+writes, so that the export reads back through ``params_from_jax``).
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ def _leaf(key: str, value, transposed: bool, device, dtype):
                       device=device)
 
 
-def params_from_jax(tree, device="cpu", dtype=torch.float32):
-  """Convert a JAX params tree (numpy leaves) to the port's params."""
+def _map_leaves(tree, leaf):
+  """``leaf(key, value, transposed)`` at each leaf of a params tree, where
+  ``key`` is the leaf's dict key and ``transposed`` whether it lies under
+  a transposed conv; tuples become lists."""
 
   def walk(node, key, transposed):
     if isinstance(node, dict):
@@ -43,6 +49,28 @@ def params_from_jax(tree, device="cpu", dtype=torch.float32):
               for k, v in node.items()}
     if isinstance(node, (list, tuple)):
       return [walk(v, key, transposed) for v in node]
-    return _leaf(key, node, transposed, device, dtype)
+    return leaf(key, node, transposed)
 
   return walk(tree, None, False)
+
+
+def params_from_jax(tree, device="cpu", dtype=torch.float32):
+  """Convert a JAX params tree (numpy leaves) to the port's params."""
+  return _map_leaves(
+      tree, lambda key, v, transposed: _leaf(key, v, transposed, device,
+                                              dtype))
+
+
+def _jax_leaf(key: str, value: torch.Tensor, transposed: bool) -> np.ndarray:
+  a = value.detach().to("cpu", torch.float32).numpy()
+  if key == "w" and a.ndim == 4:
+    if transposed:
+      a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+    else:
+      a = a.transpose(2, 3, 1, 0)
+  return np.ascontiguousarray(a)
+
+
+def params_to_jax(tree):
+  """The port's params -> the JAX package's tree (float32 numpy leaves)."""
+  return _map_leaves(tree, _jax_leaf)

@@ -12,15 +12,26 @@ bf16 leaf is stored as its uint16 bit pattern and marked so in the tree.
 ``load_params_values`` reads it back to the same tree of numpy arrays
 (bf16 leaves as float32, which holds them exactly) and raises when an
 array the tree names is missing, or the file holds one it does not name.
-``convert.params_from_jax`` then makes the port's params of it.
+``convert.params_from_jax`` then makes the port's params of it;
+``export_params`` writes the port's params back in that form.
+
+Training checkpoints (the write side of the JAX package's orbax
+``Checkpointer``, without orbax): ``Checkpointer`` keeps a trainer's
+state, step, params and optimizer moments, as one ``params.npz`` per step
+directory (``<directory>/<step>/``) in the port's own layouts, and
+restores it against a template state. The JAX package's orbax training
+checkpoints are not read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
+import torch
 
 PARAMS_FILE = "params.npz"
 META_FILE = "meta.json"
@@ -116,3 +127,107 @@ def load_params_values(path: str):
   if extra:
     raise ValueError(f"{p}: arrays the tree does not name: {extra[:8]}")
   return params
+
+
+def export_params(directory: str, params, meta: dict | None = None):
+  """Release-format export of the port's params: ``params.npz`` in the JAX
+  package's layouts (``convert.params_to_jax``) + ``meta.json``."""
+  from kfnet_tpu_torch import convert
+  save_params(directory, convert.params_to_jax(params), meta)
+
+
+def _host_tree(node):
+  """A state (dataclasses, dicts, lists, tensors, numbers) as a tree of
+  dicts, lists and numpy arrays; bf16 tensors as float32 (exact)."""
+  if dataclasses.is_dataclass(node):
+    return {f.name: _host_tree(getattr(node, f.name))
+            for f in dataclasses.fields(node)}
+  if isinstance(node, dict):
+    return {k: _host_tree(v) for k, v in node.items()}
+  if isinstance(node, (list, tuple)):
+    return [_host_tree(v) for v in node]
+  if isinstance(node, torch.Tensor):
+    t = node.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+  return np.asarray(node)
+
+
+def _like(template, saved, path):
+  """``saved`` (numpy leaves) in the structure, devices and dtypes of
+  ``template``; raises where the two differ in structure or shape."""
+  where = path or "/"
+  if dataclasses.is_dataclass(template):
+    names = [f.name for f in dataclasses.fields(template)]
+    if not isinstance(saved, dict) or sorted(saved) != sorted(names):
+      raise ValueError(f"checkpoint at {where}: fields {names} expected")
+    return dataclasses.replace(template, **{
+        n: _like(getattr(template, n), saved[n], f"{path}/{n}")
+        for n in names})
+  if isinstance(template, dict):
+    if not isinstance(saved, dict) or sorted(saved) != sorted(template):
+      raise ValueError(f"checkpoint at {where}: keys {sorted(template)} "
+                       f"expected")
+    return {k: _like(v, saved[k], f"{path}/{k}") for k, v in template.items()}
+  if isinstance(template, (list, tuple)):
+    if not isinstance(saved, (list, tuple)) or len(saved) != len(template):
+      raise ValueError(f"checkpoint at {where}: {len(template)} items "
+                       f"expected")
+    return type(template)(_like(t, s, f"{path}/{i}")
+                          for i, (t, s) in enumerate(zip(template, saved)))
+  if isinstance(template, torch.Tensor):
+    if tuple(saved.shape) != tuple(template.shape):
+      raise ValueError(f"checkpoint at {where}: shape {tuple(saved.shape)}, "
+                       f"expected {tuple(template.shape)}")
+    return torch.from_numpy(np.ascontiguousarray(saved)).to(
+        device=template.device, dtype=template.dtype)
+  return type(template)(saved.item())
+
+
+class Checkpointer:
+  """A trainer's states by step under ``directory``: ``<step>/params.npz``,
+  the newest ``max_to_keep`` kept. A step is written to a temporary
+  directory and renamed into place, so a step directory is always whole.
+  Saves are synchronous (``wait`` is there for the JAX package's
+  signature)."""
+
+  def __init__(self, directory: str, max_to_keep: int = 3):
+    self._dir = os.path.abspath(directory)
+    os.makedirs(self._dir, exist_ok=True)
+    self._keep = max_to_keep
+    self._last_saved = -1
+
+  def all_steps(self) -> list:
+    return sorted(int(d) for d in os.listdir(self._dir)
+                  if d.isdigit() and has_params(os.path.join(self._dir, d)))
+
+  def save(self, step: int, state, force: bool = False):
+    """Write ``state`` at ``step`` unless that step exists. ``force`` is
+    the JAX package's override of a save interval, which this writer does
+    not have: every call writes."""
+    del force
+    if step == self._last_saved or step in self.all_steps():
+      return
+    tmp = os.path.join(self._dir, f".{step}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    save_params(tmp, _host_tree(state))
+    os.replace(tmp, os.path.join(self._dir, str(step)))
+    self._last_saved = step
+    for old in self.all_steps()[:-self._keep]:
+      shutil.rmtree(os.path.join(self._dir, str(old)))
+
+  def restore(self, step: int, template):
+    """The state saved at ``step``, shaped, placed and typed as
+    ``template``."""
+    return _like(template,
+                 load_params_values(os.path.join(self._dir, str(step))), "")
+
+  def restore_latest(self, template):
+    step = self.latest_step()
+    return None if step is None else self.restore(step, template)
+
+  def latest_step(self):
+    steps = self.all_steps()
+    return steps[-1] if steps else None
+
+  def wait(self):
+    pass

@@ -45,6 +45,8 @@ card rounds otherwise, and float32 P3P amplifies it: 1.7e-4 seen); params
 on the CPU moved to the card by the sequence entry points.
 """
 
+import unittest.mock as mock
+
 import numpy as np
 import pytest
 import torch
@@ -858,3 +860,110 @@ def test_sequence_entry_points_move_cpu_params_to_the_card(cuda):
   assert xs.device.type == "cuda" and torch.equal(xs, want)
   same, _ = sequence.placed(params, "cuda")
   assert same is params
+
+
+def _train_data(h=48, w=64, n=6):
+  """A rendered sequence and its labels on the CPU, and the tiny float32
+  configs normalised to it."""
+  from kfnet_tpu_torch import configs
+  from kfnet_tpu_torch.data import labels, synthetic
+  from kfnet_tpu_torch.tools.demo import label_maps
+  seq = synthetic.make_sequence(n, height=h, width=w, seed=0, device="cpu")
+  coords, valid = label_maps(seq["depths"], seq["poses"], seq["K"])
+  mean, std = labels.scene_statistics([coords.numpy()], [valid.numpy()])
+  cfg = kfnet.KFNetConfig(scoordnet=configs.tiny_scoordnet(mean, std),
+                          oflownet=configs.tiny_oflownet())
+  return seq["images"], coords, valid, cfg
+
+
+def _grads_close(got, want):
+  """tests/test_torch_train.py's grad tolerance: rtol 2e-3 and an atol of
+  1e-5 plus 5e-4 of the leaf's largest |value| (float32 sums in another
+  order)."""
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=2e-3,
+                               atol=1e-5 + 5e-4 * w.abs().max().item())
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+  """One training step of the tiny float32 stage-1 config: the loss at the
+  golden tolerance, the grads at _grads_close's, the updated params
+  within 1e-6 where both grads are clear of zero and within 2·lr (one
+  Adam step of opposite sign) everywhere."""
+  from kfnet_tpu_torch.train import objectives, trainer
+  images, coords, valid, cfg = _train_data()
+  batch = {"image": images[:4], "coords": coords[:4], "valid": valid[:4]}
+  loss_fn = objectives.scoordnet_objective(cfg.scoordnet)
+  opt_cfg = trainer.OptimizerConfig(learning_rate=1e-3)
+  cpu = kfnet.init(0, cfg, (48, 64, 3), device="cpu")["scoordnet"]
+  out = {}
+  for dev in ("cpu", cuda):
+    opt = trainer.make_optimizer(opt_cfg)
+    state = trainer.create_state(trainer.clone_params(cpu, dev), opt)
+    _, _, grads = trainer.value_and_grad(loss_fn, state.params,
+                                         trainer.to_device(batch, dev))
+    state, m = trainer.make_train_step(loss_fn, opt)(
+        state, trainer.to_device(batch, dev))
+    out[str(dev)] = (m["loss"].item(), [g.cpu() for g in grads],
+                     [p.cpu() for p in L.tree_leaves(state.params)])
+  (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(cuda)]
+  np.testing.assert_allclose(lg, lc, rtol=5e-4, atol=5e-5)
+  _grads_close(gg, gc)
+  for g1, g2, a, b in zip(gg, gc, pg, pc):
+    clear = (g1.abs() > 1e-5) & (g2.abs() > 1e-5) & (g1 * g2 > 0)
+    assert torch.all((a - b).abs()[clear] <= 1e-6)
+    assert torch.all((a - b).abs() <= 2e-3 + 1e-6)
+
+
+def test_window_grads_kernel_on_card_match_composition(cuda):
+  """BPTT through the fused kernel on the card (FusedFilterStep: the
+  kernel's forward, autograd through the plain version) against the
+  composition on the card, remat on: loss within 1e-5 relative, grads
+  within 1e-4 of each leaf's largest |value| (float32: the kernel is
+  bit-equal to its plain version, the composition orders the same
+  arithmetic otherwise); two launches a filter step."""
+  import dataclasses
+  from kfnet_tpu_torch.train import objectives, trainer
+  images, coords, valid, cfg = _train_data()
+  batch = {"images": torch.stack([images[:4], images[2:]]),
+           "coords": torch.stack([coords[:4], coords[2:]]),
+           "valid": torch.stack([valid[:4], valid[2:]])}
+  batch = trainer.to_device(batch, cuda)
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  tff.fused_filter_step.launches = 0
+  lk, _, gk = trainer.value_and_grad(
+      objectives.kfnet_window_objective(cfg, remat=True), params, batch)
+  torch.cuda.synchronize()
+  assert tff.fused_filter_step.launches == 3 * 2
+  off = dataclasses.replace(cfg, use_fused_kernel=False)
+  lc, _, gc = trainer.value_and_grad(
+      objectives.kfnet_window_objective(off, remat=True), params, batch)
+  assert abs((lk - lc) / lc).item() <= 1e-5
+  for a, b in zip(gk, gc):
+    assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_fit_on_device_keeps_its_data_on_the_card(cuda):
+  """Host data goes up once: every batch the loss sees, and the trained
+  params, are on the card; the rows are gathered there."""
+  from kfnet_tpu_torch.train import device_fit, objectives
+  images, coords, valid, cfg = _train_data()
+  loss_fn = objectives.scoordnet_objective(cfg.scoordnet)
+  seen = []
+
+  def watched(params, batch):
+    seen.extend(v.device.type for v in batch.values())
+    seen.extend(p.device.type for p in L.tree_leaves(params))
+    return loss_fn(params, batch)
+
+  data = {"image": images.numpy(), "coords": coords.numpy(),
+          "valid": valid.numpy()}
+  with mock.patch.object(torch, "from_numpy",
+                         wraps=torch.from_numpy) as uploads:
+    state, m = device_fit.fit_on_device(
+        watched, kfnet.init(0, cfg, (48, 64, 3), device="cpu")["scoordnet"],
+        data, steps=4, lr=1e-3, batch=2, chunk=2, log=None)
+  assert uploads.call_count == len(data)  # the data once, not per step
+  assert set(seen) == {"cuda"}
+  assert all(p.device.type == "cuda" for p in L.tree_leaves(state.params))
+  assert np.isfinite(m["loss"].item())

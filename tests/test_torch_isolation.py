@@ -18,7 +18,8 @@ import pytest
 from kfnet_tpu_torch.kernels import _build
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "kfnet_tpu", "orbax", "tensorstore", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "kfnet_tpu", "orbax", "optax", "tensorstore",
+             "cv2")
 PORT_FILES = sorted((ROOT / "kfnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -51,14 +52,16 @@ def _imported_modules(path):
 
 
 def test_kernels_and_core_import_no_models():
-  # the layers, bottom up: core, kernels, models; the heads' output steps
-  # the kernels need live in core (core/heads.py)
+  # the layers, bottom up: core, kernels, models, then losses and train;
+  # the heads' output steps the kernels need live in core (core/heads.py)
   pkg = ROOT / "kfnet_tpu_torch"
   for path in sorted((pkg / "kernels").glob("*.py")) + sorted(
       (pkg / "core").glob("*.py")):
     above = [m for m in _imported_modules(path)
              if m.startswith(("kfnet_tpu_torch.models",
-                              "kfnet_tpu_torch.eval"))]
+                              "kfnet_tpu_torch.eval",
+                              "kfnet_tpu_torch.train",
+                              "kfnet_tpu_torch.losses"))]
     assert not above, f"{path.relative_to(ROOT)} imports {above}"
 
 
@@ -79,6 +82,13 @@ def test_package_import_leaves_jax_out():
           "import kfnet_tpu_torch.pose.p3p, kfnet_tpu_torch.pose.smoothing;"
           "import kfnet_tpu_torch.tools.batch_invariance;"
           "import kfnet_tpu_torch.tools.bench_configs;"
+          "import kfnet_tpu_torch.losses.nll;"
+          "import kfnet_tpu_torch.train.objectives;"
+          "import kfnet_tpu_torch.train.trainer;"
+          "import kfnet_tpu_torch.train.device_fit;"
+          "import kfnet_tpu_torch.utils.logging;"
+          "import kfnet_tpu_torch.utils.checkpoint;"
+          "import kfnet_tpu_torch.tools.demo;"
           f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules];"
           "print(bad); sys.exit(1 if bad else 0)")
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
