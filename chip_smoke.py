@@ -180,10 +180,42 @@ Phases, one line each, with their seconds:
      CPU's own grads move under a 1e-6 relative nudge of the params); the
      trained weights through evaluate_sequence (graphed) against
      run_filter_python_loop (eager) on 8 held-out frames at TOL_PATH, 14
-     fused launches.
+     fused launches;
+  10. pretrained_full: the full-size flagship weights (the committed .npz
+     export, pretrained.FULL_ASSETS: stage3_sceneA, GroupNorm, w_scale 16,
+     float32 masters from bf16) loaded on the card; sceneA's held-out
+     trajectory (seed 0, trajectory seed 99, PRE_T frames at 640x480)
+     rendered on the card and served by the graphed OnlineRelocalizer
+     (its default RANSAC) in the default and the conv-kernel
+     configurations: medians below FULL_GATE in each, printed beside the
+     JAX package's on the CPU (0.0401 m / 0.666°); launches counted (the
+     fused update PRE_T - 1 a config, the conv kernels kfnet.kernel_shapes'
+     count: 192 chain, 91 same); every conv kernel call of one frame pair
+     against its plain version (check_calls) with these weights;
+  11. data: a 7-Scenes fixture (chess, DATA_TRAIN + DATA_TEST frames at
+     640x480) and a Cambridge fixture written by the port's fixture
+     writers (rendered on the card, PNG-encoded by image_io); every file
+     read back by the C++ decoder and by the plain numpy decoder, bit-equal;
+     depth_png_to_labels against labels.generate on the card at rtol = atol
+     = DATA_LABEL_TOL; the first batch of batched_native against batched's
+     (same seed: images and validity equal, coordinates at the label
+     tolerance); the loader's frames/s on both routes (DATA_EPOCHS epochs
+     of the train split, files in the page cache); then the three train
+     scripts at --net_scale full on the card on the 7-Scenes fixture
+     (batch CLI_B, CLI_STEPS steps each: train_scoordnet with the C++
+     batch loader, train_oflownet, and train_kfnet from the two exports
+     with --window_size CLI_T --remat): step counts, finite losses and
+     params, metrics.jsonl, the last checkpoint, the export and its meta;
+     no kernel launched by stages 1 and 2, and train_kfnet's fused
+     launches 2 (T - 1) a step (the forward and remat's recompute, each
+     for the whole batch), 24 for 6 steps at T = 3; ms a step (the median
+     over the steps after the first, CliTimer), the card's busy ms and
+     idle share over those steps from a torch.profiler trace, the host's
+     ms between steps and within one, and peak memory.
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
-nothing under artifacts/; writes only the kernel build directory and the
-training checkpoints of phase 9, in a temporary directory it removes.
+nothing under artifacts/; writes only the kernel build directory, and the
+training checkpoints of phase 9 and the fixtures and train outputs of
+phase 11, in temporary directories it removes.
 """
 
 import contextlib
@@ -236,7 +268,8 @@ FLEET_RESET = 3             # the tick at which slot 2 starts over
 # the batched pose solve against each frame's solve on the same indices,
 # T_wc: rtol, and an atol for its entries near 0
 POSE_RTOL, POSE_ATOL = 1e-4, 1e-6
-FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "optax", "tensorstore", "cv2")
+FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "optax", "tensorstore", "cv2",
+             "PIL")
 # phase "train" (the stages at full width, 640x480, on a rendered sequence)
 TRAIN_FRAMES = 16           # frames of the training sequence
 TRAIN_B, TRAIN_STEPS, TRAIN_CHUNK = 8, 6, 3  # stages 1 and 2
@@ -254,6 +287,18 @@ REMAT_LOSS_RTOL, REMAT_GRAD_RTOL, REMAT_GRAD_ATOL = 1e-6, 2e-3, 1e-5
 # plus atol plus a share of the leaf's largest |value| (tests/test_torch_train.py)
 GOLDEN = dict(rtol=5e-4, atol=5e-5)
 GRAD_RTOL, GRAD_ATOL, GRAD_LEAF = 2e-3, 1e-5, 5e-4
+# phase "pretrained_full": the full-size sceneA weights' medians, each config
+FULL_GATE = {"median_translation_m": 0.10, "median_rotation_deg": 2.0}
+# phase "data": the fixtures' frames, the loader's batch and epochs, the
+# labels' tolerance (tests/test_native_io.py:61), and the train scripts at
+# full width: batch, steps, BPTT window
+DATA_TRAIN, DATA_TEST = 8, 6
+DATA_B, DATA_EPOCHS = 4, 16
+DATA_LABEL_TOL = 1e-5
+CLI_B, CLI_T = 2, 3
+CLI_NET_SCALE = "full"
+# each script's ms a step is the median over its steps after the first
+CLI_STEPS = {"train_scoordnet": 8, "train_oflownet": 8, "train_kfnet": 6}
 
 
 def say(phase, t0, **fields):
@@ -1308,6 +1353,338 @@ def float32_card_vs_cpu(dev, scale, h, w):
   return out
 
 
+def frame_pair_outputs(params, c, img0, img1):
+  """One frame pair's measurement (z, V) of frame 1 and flow (flow, W)
+  from frame 0 to 1 (preprocessed frames): every conv of a filter step."""
+  from kfnet_tpu_torch.models import kfnet
+  z, V = kfnet.measure(params, c, img1)
+  flow, W = kfnet.flow_from_features(params, c, kfnet.encode(params, c, img0),
+                                     kfnet.encode(params, c, img1))
+  return {"z": z, "V": V, "flow": flow, "W": W}
+
+
+def conv_kernel_config(cfg):
+  """``cfg`` with SCoordNet on the chain kernel and OFlowNet on the 3x3
+  kernel (the conv-kernel configuration)."""
+  return dataclasses.replace(
+      cfg, scoordnet=dataclasses.replace(cfg.scoordnet,
+                                         conv_impl="pallas_fused"),
+      oflownet=dataclasses.replace(cfg.oflownet, conv_impl="pallas_3x3"))
+
+
+def pretrained_full_phase(dev, wrappers):
+  """Phase "pretrained_full": the full-size flagship weights
+  (pretrained.FULL_ASSETS, stage3_sceneA) served at 640x480 through the
+  graphed OnlineRelocalizer in both configurations, on sceneA's held-out
+  trajectory rendered on the card; each conv kernel call of one frame
+  pair against its plain version. Returns the phase's fields; the caller
+  asserts."""
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch import pretrained
+  from kfnet_tpu_torch.data import synthetic
+  from kfnet_tpu_torch.eval.online import OnlineRelocalizer
+  from kfnet_tpu_torch.kernels import conv3x3 as c3
+  from kfnet_tpu_torch.models import kfnet
+  from kfnet_tpu_torch.nn import layers as L
+  from kfnet_tpu_torch.pose import metrics
+  from kfnet_tpu_torch.utils import checkpoint
+
+  t0 = time.time()
+  cfg, params = pretrained.load(pretrained.FULL_ASSETS, device=dev)
+  torch.cuda.synchronize()
+  load_s = time.time() - t0
+  meta = checkpoint.load_meta(os.path.join(pretrained.FULL_ASSETS,
+                                           "stage3_sceneA"))
+  h, w = int(meta["height"]), int(meta["width"])
+  data = synthetic.make_sequence(PRE_T, height=h, width=w, seed=0,
+                                 traj_seed=99, duration=PRE_T / 48.0,
+                                 device=dev)
+  K = data["K"].cpu().numpy()
+  gt = data["poses"].cpu().numpy()
+  conv_cfg = conv_kernel_config(cfg)
+  out = {"weights": "kfnet_tpu_torch/assets/pretrained_full/stage3_sceneA",
+         "load_seconds": load_s, "frames": PRE_T, "frame_size": [h, w],
+         "norm": cfg.scoordnet.norm, "w_scale": cfg.w_scale,
+         "params": sum(p.numel() for p in L.tree_leaves(params)),
+         "on_device": all(p.device.type == "cuda"
+                          for p in L.tree_leaves(params)),
+         "jax_cpu_medians_for_comparison": {"translation_m": 0.0401,
+                                            "rotation_deg": 0.666},
+         "configs": {}}
+  for name, c in (("default", cfg), ("conv_kernels", conv_cfg)):
+    reloc = OnlineRelocalizer(params, c, K, device=dev, seed=0)
+    res, n = counted(wrappers, lambda: [reloc.process(f)
+                                        for f in data["images"]])
+    poses = np.stack([p for p, _ in res])
+    t_err, r_err = metrics.median_errors(poses, gt)
+    first = kfnet.kernel_shapes(c, IMG, first=True)
+    later = kfnet.kernel_shapes(c, IMG)
+    expected = {"fused_warp_kalman": PRE_T - 1}
+    for k in ("conv3x3_same", "conv3x3_gn_chain"):
+      expected[k] = len(first[k]) + (PRE_T - 1) * len(later[k])
+    out["configs"][name] = {
+        "median_translation_m": float(t_err),
+        "median_rotation_deg": float(r_err),
+        "finite": bool(np.isfinite(poses).all()),
+        "consistent_frac_last": res[-1][1]["consistent_frac"],
+        "launches": n, "launches_expected": expected}
+  up = lambda i: kfnet.preprocess_images(cfg, data["images"][i])
+  calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
+  with recording(c3, calls):
+    frame_pair_outputs(params, conv_cfg, up(0), up(1))
+  out["calls_in_path_vs_plain"] = check_calls(c3, calls)
+  return out
+
+
+class CliTimer:
+  """Times a train script's ``steps`` steps on the card without touching
+  it: while active, the objective ``factory`` of ``objectives`` gives its
+  loss functions wrapped in a StepTimer (an event as each step starts, its
+  loss kept) and stamps the host clock as each is called; ``Adam.update``
+  marks an event and stamps the host clock as each step's update is
+  enqueued. Steps 2 to ``steps`` run under a torch.profiler trace of the
+  card's kernels, copies and fills (started after step 1's update with
+  the card drained, stopped after the last update and a drain).
+
+  ``step_ms()``: step 1 from its start to its update, each later step from
+  the update before it to its own (the whole cycle: data, forward,
+  backward, update). ``profile()``: over steps 2 to ``steps``, the card's
+  busy ms a step (union of the traced spans), its idle share of the
+  event-timed cycle, kernels a step, and the host's median ms from an
+  update to the next step's loss call (next batch, its copy up) and from
+  that call to the step's update (enqueueing forward, backward and
+  update)."""
+
+  def __init__(self, objectives, trainer, factory, steps):
+    self.step, self.steps, self.updates = None, steps, []
+    self.host_calls, self.host_updates = [], []
+    self._prof = None
+    make, update = getattr(objectives, factory), trainer.Adam.update
+
+    def timed_factory(*args, **kwargs):
+      self.step = StepTimer(make(*args, **kwargs))
+
+      def loss_fn(params, batch):
+        self.host_calls.append(time.perf_counter())
+        return self.step(params, batch)
+      return loss_fn
+
+    def timed_update(adam, *args, **kwargs):
+      import torch
+      from torch.profiler import ProfilerActivity, profile
+      update(adam, *args, **kwargs)
+      if not self.updates:
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+      ev = torch.cuda.Event(enable_timing=True)
+      ev.record()
+      self.updates.append(ev)
+      self.host_updates.append(time.perf_counter())
+      if len(self.updates) == self.steps:
+        torch.cuda.synchronize()
+        self._prof.stop()
+
+    self._patches = [mock.patch.object(objectives, factory, timed_factory),
+                     mock.patch.object(trainer.Adam, "update", timed_update)]
+
+  def __enter__(self):
+    for p in self._patches:
+      p.start()
+    return self
+
+  def __exit__(self, *exc):
+    for p in reversed(self._patches):
+      p.stop()
+
+  def step_ms(self):
+    import torch
+    torch.cuda.synchronize()
+    ends = self.updates
+    if not ends:
+      return []
+    return [self.step.events[0].elapsed_time(ends[0])] + [
+        a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+
+  def profile(self):
+    import numpy as np
+    from kfnet_tpu_torch.tools import profile_online
+    ms = self.step_ms()[1:]
+    n = len(ms)
+    if n < 1 or len(self.updates) != self.steps:
+      return None
+    kernels = profile_online.profiled_kernels(self._prof, copies=True)
+    busy = (profile_online.summarize(kernels, sum(ms), n)["device_busy_ms"]
+            if kernels else 0.0)
+    return {
+        "steps": n,
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1.0 - busy * n / sum(ms),
+        "kernels_per_step": len(kernels) / n,
+        "host_ms_update_to_next_step": 1e3 * float(np.median(
+            [c - u for u, c in zip(self.host_updates[:-1],
+                                   self.host_calls[1:])])),
+        "host_ms_step_to_update": 1e3 * float(np.median(
+            [u - c for c, u in zip(self.host_calls[1:],
+                                   self.host_updates[1:])]))}
+
+
+def data_phase(dev, wrappers):
+  """Phase "data": the on-disk data path and the three train scripts on
+  the card (module docstring, phase 11). Returns the phase's fields; the
+  caller asserts."""
+  import glob
+
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch.data import fixture, image_io, labels, native_io
+  from kfnet_tpu_torch.data import pipeline
+  from kfnet_tpu_torch.data import seven_scenes as s7
+  from kfnet_tpu_torch.train import objectives, trainer
+  from kfnet_tpu_torch.train import train_kfnet, train_oflownet
+  from kfnet_tpu_torch.train import train_scoordnet
+  from kfnet_tpu_torch.utils import checkpoint
+  from kfnet_tpu_torch.utils import config as config_lib
+
+  out = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    root = os.path.join(tmp, "data")
+    t0 = time.time()
+    native_io.load_library()
+    out["host_library_build_s"] = time.time() - t0
+    t0 = time.time()
+    fixture.write_seven_scenes_fixture(root, train_frames=DATA_TRAIN,
+                                       test_frames=DATA_TEST, height=IMG[0],
+                                       width=IMG[1], device=dev)
+    fixture.write_cambridge_fixture(root, train_frames=DATA_TRAIN,
+                                    test_frames=DATA_TEST, device=dev)
+    out["fixture_write_s"] = time.time() - t0
+    files = sorted(glob.glob(os.path.join(root, "**", "*.png"),
+                             recursive=True))
+    t_cpp = t_np = 0.0
+    unequal = []
+    for path in files:
+      with open(path, "rb") as f:
+        raw = f.read()
+      t = time.perf_counter()
+      a = image_io.decode_png(raw)
+      t_cpp += time.perf_counter() - t
+      t = time.perf_counter()
+      b = image_io.decode_png_plain(raw)
+      t_np += time.perf_counter() - t
+      if a.dtype != b.dtype or not np.array_equal(a, b):
+        unequal.append(os.path.relpath(path, root))
+    out["decode"] = {"files": len(files), "unequal": unequal,
+                     "cpp_ms_per_file": 1e3 * t_cpp / len(files),
+                     "numpy_ms_per_file": 1e3 * t_np / len(files)}
+
+    exp = config_lib.ExperimentConfig(input_folder=root, device=str(dev))
+    split = s7.load_split(root, "chess", "train")
+    K = split.intrinsics
+    label_err = 0.0
+    valid_equal = True
+    for fr in split.frames:
+      T = s7.read_pose(fr.pose_path)
+      c, v = native_io.depth_png_to_labels(fr.depth_path, K, T)
+      rc, rv = labels.generate(
+          torch.from_numpy(s7.read_depth(fr.depth_path)).to(dev),
+          torch.from_numpy(K).to(dev), torch.from_numpy(T).to(dev))
+      rc, rv = rc.cpu().numpy(), rv.cpu().numpy()
+      valid_equal &= bool(np.array_equal(v, rv))
+      label_err = max(label_err, float(
+          (np.abs(c - rc) / (DATA_LABEL_TOL + DATA_LABEL_TOL * np.abs(rc)))
+          .max()))
+    out["labels_vs_generate"] = {"frames": len(split.frames),
+                                 "valid_equal": valid_equal,
+                                 "max_err_over_tol": label_err,
+                                 "rtol_atol": DATA_LABEL_TOL}
+
+    load_fns, _, native_meta = train_scoordnet.make_scene_loader(exp)
+    meta = native_meta()
+    first = lambda it: (next(it), it.close())[0]
+    b_py = first(pipeline.batched(load_fns, DATA_B, seed=0,
+                                  to_device=False))
+    b_nat = first(pipeline.batched_native(batch_size=DATA_B, seed=0,
+                                          to_device=False, **meta))
+    out["native_vs_python_batch"] = {
+        "keys_equal": sorted(b_py) == sorted(b_nat),
+        "image_equal": bool(np.array_equal(b_py["image"], b_nat["image"])),
+        "valid_equal": bool(np.array_equal(b_py["valid"], b_nat["valid"])),
+        "coords_max_abs": float(np.abs(b_py["coords"]
+                                       - b_nat["coords"]).max()),
+        "coords_max_err_over_tol": float(
+            (np.abs(b_nat["coords"] - b_py["coords"])
+             / (DATA_LABEL_TOL + DATA_LABEL_TOL * np.abs(b_py["coords"])))
+            .max())}
+    rates = {}
+    for route, make in (
+        ("batched_native", lambda: pipeline.batched_native(
+            batch_size=DATA_B, seed=0, epochs=DATA_EPOCHS, to_device=False,
+            **meta)),
+        ("batched", lambda: pipeline.batched(
+            load_fns, DATA_B, seed=0, epochs=DATA_EPOCHS, to_device=False))):
+      t = time.perf_counter()
+      n = sum(b["image"].shape[0] for b in make())
+      rates[route] = {"frames": n,
+                      "frames_per_s": n / (time.perf_counter() - t)}
+    out["loader"] = rates
+
+    models = os.path.join(tmp, "models")
+    common = ["--input_folder", root, "--scene", "chess", "--model_folder",
+              models, "--net_scale", CLI_NET_SCALE, "--device", str(dev),
+              "--batch_size", str(CLI_B)]
+    runs = {
+        "train_scoordnet": (train_scoordnet, "scoordnet_objective",
+                            "scoordnet_chess", CLI_STEPS["train_scoordnet"],
+                            common),
+        "train_oflownet": (train_oflownet, "oflownet_objective",
+                           "oflownet_7scenes", CLI_STEPS["train_oflownet"],
+                           common + ["--scenes", "chess"]),
+        "train_kfnet": (train_kfnet, "kfnet_window_objective", "kfnet_chess",
+                        CLI_STEPS["train_kfnet"],
+                        common + ["--window_size", str(CLI_T), "--remat",
+                                  "--scoordnet_ckpt",
+                                  os.path.join(models, "scoordnet_chess"),
+                                  "--oflownet_ckpt",
+                                  os.path.join(models, "oflownet_7scenes")]),
+    }
+    clis = {}
+    for name, (module, factory, sub, steps, argv) in runs.items():
+      torch.cuda.reset_peak_memory_stats()
+      t = time.time()
+      with CliTimer(objectives, trainer, factory, steps) as timer:
+        state, n = counted(wrappers, lambda: module.main(
+            argv + ["--max_steps", str(steps)]))
+      ms = timer.step_ms()
+      prof = timer.profile()
+      out_dir = os.path.join(models, sub)
+      export = os.path.join(out_dir, "export")
+      emeta = checkpoint.load_meta(export) or {}
+      clis[name] = {
+          "seconds": time.time() - t, "steps": state.step,
+          "steps_expected": steps, "optimizer_count": state.opt_state.count,
+          "losses": [float(x) for x in timer.step.losses],
+          "step_ms": ms,
+          "ms_per_step": float(np.median(ms[1:])) if len(ms) > 1 else None,
+          "profile": prof,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "params_finite": tree_finite(state.params),
+          "files": {
+              "metrics_jsonl": os.path.exists(os.path.join(out_dir,
+                                                           "metrics.jsonl")),
+              "checkpoint_step": checkpoint.Checkpointer(
+                  out_dir).latest_step(),
+              "export_params": checkpoint.has_params(export),
+              "export_meta": sorted(emeta)},
+          "launches": n}
+    clis["train_kfnet"]["launches_expected"] = {
+        "fused_warp_kalman": CLI_STEPS["train_kfnet"] * 2 * (CLI_T - 1),
+        "conv3x3_same": 0, "conv3x3_gn_chain": 0}
+    out["clis"] = clis
+  return out
+
+
 def main():
   t_all = time.time()
   import numpy as np
@@ -1513,10 +1890,7 @@ def main():
   img0, img1 = up(frames[0]), up(frames[1])
 
   def pair_outputs(c):
-    z, V = kfnet.measure(params, c, img1)
-    flow, W = kfnet.flow_from_features(params, c, kfnet.encode(params, c, img0),
-                                       kfnet.encode(params, c, img1))
-    return {"z": z, "V": V, "flow": flow, "W": W}
+    return frame_pair_outputs(params, c, img0, img1)
 
   calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
   with recording(c3, calls):
@@ -1983,6 +2357,59 @@ def main():
     raise AssertionError(f"card off the CPU: "
                          f"{train_checks['float32_card_vs_cpu']}")
 
+  # 10. the full-size shipped weights at 640x480
+  t0 = time.time()
+  full = pretrained_full_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("pretrained_full", t0, gpu=gpu, nvidia_smi=smi, gate=FULL_GATE, **full,
+      total_seconds=round(time.time() - t_all, 1))
+  if not full["on_device"] or full["norm"] != "group" or \
+      full["w_scale"] != 16.0:
+    raise AssertionError(f"full-size weights: {full}")
+  for name, r in full["configs"].items():
+    if r["launches"] != r["launches_expected"]:
+      raise AssertionError(f"pretrained_full {name} launches {r['launches']}"
+                           f", expected {r['launches_expected']}")
+    if not (r["finite"] and all(r[k] < v for k, v in FULL_GATE.items())):
+      raise AssertionError(f"sceneA not relocalized by the full-size "
+                           f"weights in the {name} config: {r}")
+
+  # 11. the on-disk data path and the three train scripts
+  t0 = time.time()
+  data = data_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("data", t0, gpu=gpu, nvidia_smi=smi, **data,
+      total_seconds=round(time.time() - t_all, 1))
+  if data["decode"]["unequal"] or not data["decode"]["files"]:
+    raise AssertionError(f"the C++ and numpy PNG decoders differ: "
+                         f"{data['decode']}")
+  lab = data["labels_vs_generate"]
+  if not (lab["valid_equal"] and lab["max_err_over_tol"] <= 1.0):
+    raise AssertionError(f"depth_png_to_labels off labels.generate: {lab}")
+  nb = data["native_vs_python_batch"]
+  if not (nb["keys_equal"] and nb["image_equal"] and nb["valid_equal"]
+          and nb["coords_max_err_over_tol"] <= 1.0):
+    raise AssertionError(f"batched_native off batched: {nb}")
+  for name, r in data["clis"].items():
+    f = r["files"]
+    if not (r["steps"] == r["optimizer_count"] == r["steps_expected"]
+            and len(r["losses"]) == r["steps_expected"]
+            and np.isfinite(r["losses"]).all() and r["params_finite"]
+            and f["metrics_jsonl"] and f["export_params"]
+            and f["checkpoint_step"] == r["steps_expected"]
+            and r["profile"] is not None):
+      raise AssertionError(f"{name}: {r}")
+    want_meta = (["dataset", "scenes"] if name == "train_oflownet"
+                 else ["coord_offset", "coord_scale", "scene"])
+    if f["export_meta"] != want_meta:
+      raise AssertionError(f"{name} export meta: {f}")
+    if name != "train_kfnet" and any(r["launches"].values()):
+      raise AssertionError(f"{name} launched a kernel: {r['launches']}")
+  cli_kf = data["clis"]["train_kfnet"]
+  if cli_kf["launches"] != cli_kf["launches_expected"]:
+    raise AssertionError(f"train_kfnet launches {cli_kf['launches']}, "
+                         f"expected {cli_kf['launches_expected']}")
+
   bad = [m for m in FORBIDDEN if m in sys.modules]
   if bad:
     raise AssertionError(f"imported {bad}")
@@ -1994,6 +2421,9 @@ def main():
               "sequence_conv_kernels": conv_forms["graphed"]["launches"],
               "pretrained": pre["launches"],
               "train": train_launches,
+              **{f"pretrained_full_{k}": v["launches"]
+                 for k, v in full["configs"].items()},
+              "data_train_kfnet": cli_kf["launches"],
               **{f"fleet_{k}": v["launches"]
                  for k, v in fleet_checks.items()}}
   phase_launches = lambda k: {p: v[k] for p, v in by_phase.items()}

@@ -1,20 +1,66 @@
-"""Model and solver presets of the synthetic scenes (port of the second
-half of ``kfnet_tpu/configs/__init__.py``): the small, full and tiny
-widths of both nets, ``NET_SCALES`` and ``synthetic_ransac``. The shipped
-synthetic weights (``pretrained``) are the small ones.
+"""Per-dataset and per-scene experiment presets, and the model and solver
+presets of the synthetic scenes (port of ``kfnet_tpu/configs/__init__.py``).
 
-The dataset presets of the JAX module (``seven_scenes``,
-``twelve_scenes``, ``cambridge``, ``get``) build the trainer's and the
-loaders' configs, which are not ported yet; they come with the training
-and data loaders.
+``get(dataset, scene)`` gives an ExperimentConfig with the reference's
+flag defaults for the train scripts. The small, full and tiny widths of
+both nets, ``NET_SCALES`` and ``synthetic_ransac`` serve the synthetic
+demo and the smoke runs; the shipped synthetic weights (``pretrained``)
+are the small ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from kfnet_tpu_torch.data.cambridge import CAMBRIDGE_SCENES
+from kfnet_tpu_torch.data.seven_scenes import SEVEN_SCENES
+from kfnet_tpu_torch.data.twelve_scenes import TWELVE_SCENES
 from kfnet_tpu_torch.models import oflownet, scoordnet
 from kfnet_tpu_torch.pose import ransac
+from kfnet_tpu_torch.train.trainer import OptimizerConfig, TrainLoopConfig
+from kfnet_tpu_torch.utils import config as config_lib
+
+
+def seven_scenes(scene: str = "chess",
+                 input_folder: str = "") -> config_lib.ExperimentConfig:
+  assert scene in SEVEN_SCENES, scene
+  return config_lib.ExperimentConfig(
+      dataset=config_lib.SEVEN_SCENES, scene=scene,
+      input_folder=input_folder, batch_size=8,
+      optimizer=OptimizerConfig(learning_rate=1e-4, decay_steps=100_000),
+      loop=TrainLoopConfig(max_steps=300_000))
+
+
+def twelve_scenes(scene: str = "apt1/kitchen",
+                  input_folder: str = "") -> config_lib.ExperimentConfig:
+  assert scene in TWELVE_SCENES, scene
+  return config_lib.ExperimentConfig(
+      dataset=config_lib.TWELVE_SCENES, scene=scene,
+      input_folder=input_folder, batch_size=8,
+      optimizer=OptimizerConfig(learning_rate=1e-4, decay_steps=80_000),
+      loop=TrainLoopConfig(max_steps=200_000))
+
+
+def cambridge(scene: str = "KingsCollege",
+              input_folder: str = "") -> config_lib.ExperimentConfig:
+  assert scene in CAMBRIDGE_SCENES, scene
+  return config_lib.ExperimentConfig(
+      dataset=config_lib.CAMBRIDGE, scene=scene,
+      input_folder=input_folder, batch_size=8,
+      optimizer=OptimizerConfig(learning_rate=2e-4, decay_steps=100_000),
+      loop=TrainLoopConfig(max_steps=300_000))
+
+
+_FACTORIES = {
+    "7scenes": seven_scenes,
+    "12scenes": twelve_scenes,
+    "cambridge": cambridge,
+}
+
+
+def get(dataset: str, scene: str,
+        input_folder: str = "") -> config_lib.ExperimentConfig:
+  return _FACTORIES[dataset](scene, input_folder)
 
 
 def small_scoordnet(mean=(0.0, 0.0, 0.0), std=1.0):

@@ -1,10 +1,13 @@
-"""Build the port's CUDA sources with ``nvcc`` into shared libraries with a
-plain C interface, loaded with ``ctypes``.
+"""Build the port's CUDA sources with ``nvcc``, and its host C++ sources
+(the data path's PNG decoder and batch loader, ``data/csrc``) with the
+host's C++ compiler, into shared libraries with a plain C interface,
+loaded with ``ctypes``.
 
 No PyTorch headers are compiled, so a build takes seconds. A library is
 built at first use and cached under a name that carries a hash of its
 sources and flags, in ``<repo>/build/kfnet_tpu_torch/`` (or, where that
-cannot be written, a directory under ``tempfile.gettempdir()``).
+cannot be written, a directory under ``tempfile.gettempdir()``). A failed
+build raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 240
+# the host library is built on the host that runs it, for no particular
+# CPU (no -march=native), and links zlib for PNG's inflate
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
+HOST_LIBS = ("-lz",)
 
 
 def find_nvcc() -> str:
@@ -43,6 +50,20 @@ def find_nvcc() -> str:
 
 def nvcc_command(nvcc: str, sources, output: str) -> list:
   return [nvcc, *NVCC_FLAGS, "-o", output, *sources]
+
+
+def find_cxx() -> str:
+  """The host C++ compiler: $CXX, then ``g++``, then ``c++`` on PATH."""
+  for c in (os.environ.get("CXX"), "g++", "c++"):
+    path = c and shutil.which(c)
+    if path:
+      return path
+  raise RuntimeError("no C++ compiler ($CXX, g++ or c++ on PATH): the "
+                     "data path's host library cannot be built")
+
+
+def host_command(cxx: str, sources, output: str) -> list:
+  return [cxx, *HOST_FLAGS, "-o", output, *sources, *HOST_LIBS]
 
 
 def cache_key(sources, flags=NVCC_FLAGS) -> str:
@@ -78,34 +99,40 @@ def build_dir() -> str:
   return path
 
 
-def _lib_path(name: str, sources) -> tuple[list, str]:
+def _lib_path(name: str, sources, host: bool = False) -> tuple[list, str]:
+  """Absolute sources (names relative to ``CSRC``; absolute paths stay as
+  they are) and the cached library's path."""
   sources = [os.path.join(CSRC, s) for s in sources]
+  flags = HOST_FLAGS + HOST_LIBS if host else NVCC_FLAGS
   return sources, os.path.join(build_dir(),
-                               f"lib{name}-{cache_key(sources)}.so")
+                               f"lib{name}-{cache_key(sources, flags)}.so")
 
 
-def build_libraries(specs) -> None:
+def build_libraries(specs, host: bool = False) -> None:
   """Build every library of ``specs`` ((name, sources) pairs) that is not
-  on disk yet, one ``nvcc`` process each, all started together."""
+  on disk yet, one compiler process each (``nvcc``, or the host's C++
+  compiler where ``host``), all started together."""
   jobs = []
   try:
     for name, sources in specs:
-      srcs, lib_path = _lib_path(name, sources)
+      srcs, lib_path = _lib_path(name, sources, host)
       if os.path.exists(lib_path):
         continue
       tmp = f"{lib_path}.{os.getpid()}.tmp"
-      cmd = nvcc_command(find_nvcc(), srcs, tmp)
+      cmd = (host_command(find_cxx(), srcs, tmp) if host
+             else nvcc_command(find_nvcc(), srcs, tmp))
       jobs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True),
                    cmd, tmp, lib_path))
     for proc, cmd, tmp, lib_path in jobs:
+      tool = os.path.basename(cmd[0])
       try:
         _, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
       except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: "
+        raise RuntimeError(f"{tool} timed out after {NVCC_TIMEOUT_S} s: "
                            f"{' '.join(cmd)}") from e
       if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+        raise RuntimeError(f"{tool} failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{err}")
       os.replace(tmp, lib_path)  # atomic: a reader never sees a partial file
   finally:
@@ -115,8 +142,8 @@ def build_libraries(specs) -> None:
         proc.wait()
 
 
-def load_library(name: str, sources) -> ctypes.CDLL:
+def load_library(name: str, sources, host: bool = False) -> ctypes.CDLL:
   """Build (once per source hash on disk) and load ``sources`` as
   ``lib<name>-<hash>.so``. Callers keep the loaded library."""
-  build_libraries([(name, sources)])
-  return ctypes.CDLL(_lib_path(name, sources)[1])
+  build_libraries([(name, sources)], host)
+  return ctypes.CDLL(_lib_path(name, sources, host)[1])

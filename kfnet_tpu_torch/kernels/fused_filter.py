@@ -319,7 +319,11 @@ def _wants_grad(tensors):
   return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def fused_warp_kalman(x_prev, P_prev, flow, W, z, V, radius: int,
+DEFAULT_RADIUS = 8  # radius=None: the JAX package's default search radius
+
+
+def fused_warp_kalman(x_prev, P_prev, flow, W, z, V,
+                      radius: int | None = None,
                       threshold: float = kalman.CHI2_3DOF_P05,
                       invalid_cov: float = 1e8):
   """One fused filter inner step on float32 maps, one (h, w, C) map or a
@@ -329,11 +333,14 @@ def fused_warp_kalman(x_prev, P_prev, flow, W, z, V, radius: int,
     x_prev: (.., 3) previous posterior; P_prev: (.., 1).
     flow: (.., 2) backward flow; W: (.., 1) process noise.
     z: (.., 3) measurement; V: (.., 1) measurement noise.
-    radius: flow clip bound (the OFlowNet search radius).
+    radius: flow clip bound (the OFlowNet search radius); None means
+      ``DEFAULT_RADIUS``, as in the JAX package.
 
   Returns:
     (x_post (..,3) f32, P_post (..,1) f32, consistent (..,1) bool).
   """
+  if radius is None:
+    radius = DEFAULT_RADIUS
   inputs = (x_prev, P_prev, flow, W, z, V)
   if x_prev.device.type == "cpu":
     return fused_warp_kalman_reference(*inputs, radius, threshold,

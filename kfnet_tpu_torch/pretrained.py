@@ -9,7 +9,9 @@ synthetic-scene set the JAX package ships under
 ``artifacts/pretrained_synthetic`` is exported once to
 ``kfnet_tpu_torch/assets/pretrained_synthetic`` by
 ``tools_port/export_pretrained_npz.py``, and a test holds every exported
-leaf equal to the orbax one. Each stage carries its ``meta.json`` (scene,
+leaf equal to the orbax one. ``FULL_ASSETS`` holds the full-size flagship
+stage, ``load(FULL_ASSETS)``, exported the same way from
+``artifacts/pretrained_full``. Each stage carries its ``meta.json`` (scene,
 resolution, coordinate normalisation, serving point). The JAX package's
 layouts become the port's in ``convert.params_from_jax`` only.
 """
@@ -26,8 +28,13 @@ from kfnet_tpu_torch import configs, convert
 from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
 from kfnet_tpu_torch.utils import checkpoint as ckpt_lib
 
-ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
-                      "pretrained_synthetic")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+ASSETS = os.path.join(_HERE, "assets", "pretrained_synthetic")
+# the full-size flagship: stage3_sceneA of the JAX package's
+# pretrained_full release (a 23.6M-parameter GroupNorm SCoordNet and its
+# OFlowNet, 640x480), stored as bf16 bits and read back into float32
+# master weights
+FULL_ASSETS = os.path.join(_HERE, "assets", "pretrained_full")
 
 
 def _scoordnet_config(meta) -> scoordnet.SCoordNetConfig:

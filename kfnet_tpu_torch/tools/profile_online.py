@@ -59,6 +59,12 @@ def trace_kernels(fn, n, copies=False):
       fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+  return profiled_kernels(prof, copies), wall_ms
+
+
+def profiled_kernels(prof, copies=False):
+  """(name, start us, duration us) of the kernels in the finished trace
+  of ``prof``, with ``copies`` also of its copies and fills."""
   with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "trace.json")
     prof.export_chrome_trace(path)
@@ -66,7 +72,7 @@ def trace_kernels(fn, n, copies=False):
       events = json.load(f)["traceEvents"]
   cats = ("kernel",) + (COPIES if copies else ())
   return [(e["name"] if e["cat"] == "kernel" else f"[{e['cat']}] {e['name']}",
-           e["ts"], e["dur"]) for e in events if e.get("cat") in cats], wall_ms
+           e["ts"], e["dur"]) for e in events if e.get("cat") in cats]
 
 
 def host_ms(tick, n):

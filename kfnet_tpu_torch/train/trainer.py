@@ -183,10 +183,15 @@ def make_train_step(loss_fn: Callable, optimizer: Adam) -> Callable:
   return _one_step(loss_fn, optimizer)
 
 
-def make_multi_train_step(loss_fn: Callable, optimizer: Adam) -> Callable:
+def make_multi_train_step(loss_fn: Callable, optimizer: Adam,
+                          unroll: int = 1) -> Callable:
   """K training steps a call: (state, batches) -> (state, metrics of the
   last step), where ``batches`` holds arrays stacked along a leading (K,)
-  axis."""
+  axis. ``unroll`` is the JAX package's scan unroll: the steps here run
+  one after another in an eager loop, which has nothing to unroll, so any
+  positive value gives the same steps; it must be positive, as there."""
+  if unroll < 1:
+    raise ValueError(f"unroll must be a positive integer, not {unroll!r}")
   one_step = _one_step(loss_fn, optimizer)
 
   def multi_step(state: TrainState, batches):
@@ -210,6 +215,29 @@ class TrainLoopConfig:
   # package's one dispatch per K steps); log / checkpoint cadence then
   # quantizes to multiples of K
   steps_per_dispatch: int = 1
+
+
+MULTI_GPU = "ROADMAP.md, queue 1 item 5: multi-GPU"
+
+
+def default_mesh(batch_size: int, device="cuda"):
+  """The JAX package's data mesh, over as many devices as divide the batch.
+  None where one device would take it: the CPU, a device given with its
+  index (``cuda:0``), or one visible GPU. Where ``cuda`` would split the
+  batch over several GPUs it raises, as ``fit(mesh=...)`` does, since
+  data parallelism across GPUs is not ported yet."""
+  device = torch.device(device)
+  if device.type != "cuda" or device.index is not None:
+    return None
+  n = torch.cuda.device_count()
+  while n > 1 and batch_size % n:
+    n -= 1
+  if n > 1:
+    raise NotImplementedError(
+        f"a batch of {batch_size} would be split over {n} GPUs: data "
+        f"parallelism across GPUs is not ported yet ({MULTI_GPU}); train "
+        "on one with --device cuda:0")
+  return None
 
 
 def clone_params(params, device):
@@ -255,7 +283,8 @@ def fit(loss_fn: Callable,
   Returns the final TrainState; ``init_params`` are left as they were."""
   if mesh is not None:
     raise NotImplementedError(
-        "fit(mesh=...): data parallelism across GPUs is not ported yet")
+        "fit(mesh=...): data parallelism across GPUs is not ported yet "
+        f"({MULTI_GPU})")
   device = kfnet_tpu_torch.resolve_device(device)
   optimizer = make_optimizer(optimizer_cfg)
   state = create_state(clone_params(init_params, device), optimizer)

@@ -56,16 +56,20 @@ def _describe(node, path, arrays):
   return {"leaf": key, "dtype": a.dtype.name}
 
 
-def save_params(directory: str, params, meta: dict | None = None):
+def save_params(directory: str, params, meta: dict | None = None,
+                compressed: bool = False):
   """Write ``params`` (a tree of dicts, lists and tuples with array
-  leaves) as ``<directory>/params.npz``, and ``meta`` as ``meta.json``."""
+  leaves) as ``<directory>/params.npz``, and ``meta`` as ``meta.json``.
+  ``compressed`` deflates the arrays (``np.savez_compressed``); the
+  reader takes both forms."""
   os.makedirs(directory, exist_ok=True)
   arrays: dict = {}
   tree = _describe(params, "", arrays)
   if TREE_KEY in arrays:
     raise ValueError(f"a leaf path may not be {TREE_KEY!r}")
-  np.savez(os.path.join(directory, PARAMS_FILE),
-           **{TREE_KEY: np.asarray(json.dumps(tree))}, **arrays)
+  save = np.savez_compressed if compressed else np.savez
+  save(os.path.join(directory, PARAMS_FILE),
+       **{TREE_KEY: np.asarray(json.dumps(tree))}, **arrays)
   if meta is not None:
     save_meta(directory, meta)
 
@@ -93,9 +97,11 @@ def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:
   return (bits.astype(np.uint32) << 16).view(np.float32)
 
 
-def load_params_values(path: str):
+def load_params_values(path: str, dtype=None):
   """The params tree of ``<path>/params.npz`` with numpy leaves, in the
-  saved layouts; bf16 leaves come back as float32 (exactly). Raises
+  saved layouts; bf16 leaves come back as float32 (exactly), and every
+  leaf is cast to ``dtype`` where one is given (a numpy dtype or its
+  name; ``"bfloat16"`` is not one, numpy having no bf16). Raises
   ``FileNotFoundError`` without the file and ``ValueError`` when a leaf
   the tree names is missing or the file holds arrays it does not name."""
   p = os.path.join(path, PARAMS_FILE)
@@ -115,7 +121,8 @@ def load_params_values(path: str):
         raise ValueError(f"{p}: leaf {key!r} is missing")
       named.add(key)
       a = stored[key]
-      return _bf16_to_f32(a) if node["dtype"] == "bfloat16" else a
+      a = _bf16_to_f32(a) if node["dtype"] == "bfloat16" else a
+      return a if dtype is None else a.astype(dtype)
     (kind, body), = node.items()
     if kind == "dict":
       return {k: build(v) for k, v in body.items()}

@@ -967,3 +967,85 @@ def test_fit_on_device_keeps_its_data_on_the_card(cuda):
   assert set(seen) == {"cuda"}
   assert all(p.device.type == "cuda" for p in L.tree_leaves(state.params))
   assert np.isfinite(m["loss"].item())
+
+
+def test_full_size_weights_load_and_measure_on_card(cuda):
+  """The committed full-size flagship export on the card: float32 master
+  weights there, and one 640x480 measurement finite with positive
+  variances."""
+  from kfnet_tpu_torch import pretrained
+  cfg, params = pretrained.load(pretrained.FULL_ASSETS, device=cuda)
+  leaves = L.tree_leaves(params)
+  assert all(p.device.type == "cuda" and p.dtype == torch.float32
+             for p in leaves)
+  img = torch.rand((480, 640, 3), generator=torch.Generator().manual_seed(0))
+  z, V = kfnet.measure(params, cfg, kfnet.preprocess_images(
+      cfg, img.to(cuda)))
+  assert z.shape == (60, 80, 3) and V.shape == (60, 80, 1)
+  assert torch.isfinite(z).all() and (V > 0).all()
+
+
+def test_batches_go_to_the_card_from_pinned_memory(cuda, tmp_path,
+                                                   monkeypatch):
+  """The host library builds on the card's host; a batch of either loader
+  with ``to_device`` is pinned in the prefetch thread and arrives on the
+  card, equal to the host batch."""
+  import threading
+  from kfnet_tpu_torch.data import fixture, pipeline
+  pinned = []
+  pin = pipeline.pin_batch
+
+  def recording_pin(batch, device):
+    out = pin(batch, device)
+    pinned.append((threading.current_thread(),
+                   all(v.is_pinned() for v in out.values())))
+    return out
+
+  monkeypatch.setattr(pipeline, "pin_batch", recording_pin)
+  from kfnet_tpu_torch.train import train_scoordnet
+  from kfnet_tpu_torch.utils import config as config_lib
+  fixture.write_seven_scenes_fixture(str(tmp_path), train_frames=4,
+                                     test_frames=2, height=48, width=64,
+                                     device=cuda)
+  exp = config_lib.ExperimentConfig(input_folder=str(tmp_path))
+  load_fns, _, native_meta = train_scoordnet.make_scene_loader(exp)
+  host = next(pipeline.batched_native(batch_size=2, seed=1, epochs=1,
+                                      to_device=False, **native_meta()))
+  for it in (pipeline.batched_native(batch_size=2, seed=1, epochs=1,
+                                     device=cuda, **native_meta()),
+             pipeline.batched(load_fns, 2, seed=1, epochs=1, device=cuda)):
+    dev = next(it)
+    assert all(v.device.type == "cuda" for v in dev.values())
+    np.testing.assert_array_equal(dev["image"].cpu().numpy(), host["image"])
+    np.testing.assert_array_equal(dev["valid"].cpu().numpy(), host["valid"])
+    it.close()
+  assert pinned and all(ok and t is not threading.current_thread()
+                        for t, ok in pinned)
+
+
+def test_train_scripts_on_card_at_tiny_width(cuda, tmp_path):
+  """The three train scripts on the card (tiny nets, a 48x64 fixture):
+  steps, exports, params on the card, finite; BPTT windows launch the
+  fused kernel 2 (T - 1) times a step with remat."""
+  from kfnet_tpu_torch.data import fixture
+  from kfnet_tpu_torch.train import train_kfnet, train_oflownet
+  from kfnet_tpu_torch.train import train_scoordnet
+  root, models = str(tmp_path / "data"), str(tmp_path / "models")
+  fixture.write_seven_scenes_fixture(root, train_frames=5, test_frames=2,
+                                     height=48, width=64, device=cuda)
+  common = ["--input_folder", root, "--model_folder", models,
+            "--net_scale", "tiny", "--batch_size", "2", "--device", "cuda"]
+  states = [train_scoordnet.main(common + ["--max_steps", "2"]),
+            train_oflownet.main(common + ["--scenes", "chess",
+                                          "--max_steps", "2"])]
+  tff.fused_filter_step.launches = 0
+  states.append(train_kfnet.main(common + [
+      "--max_steps", "2", "--window_size", "3", "--remat",
+      "--scoordnet_ckpt", f"{models}/scoordnet_chess",
+      "--oflownet_ckpt", f"{models}/oflownet_7scenes"]))
+  torch.cuda.synchronize()
+  assert tff.fused_filter_step.launches == 2 * 2 * (3 - 1)
+  for s in states:
+    assert s.step == 2
+    assert all(p.device.type == "cuda" and torch.isfinite(p).all()
+               for p in L.tree_leaves(s.params))

@@ -72,6 +72,19 @@ def test_plain_matches_pallas_interpret(seed, oob, h, w, r, thr):
   _assert_close(got, want)
 
 
+def test_radius_none_means_eight_as_in_jax():
+  """``radius=None`` is the JAX package's default search radius, 8
+  (kfnet_tpu/kernels/fused_filter.py:189,211): flows up to ±9 are clipped
+  at 8 on both sides."""
+  args = make_inputs(seed=3, h=12, w=16, r=9, oob=True)
+  want = jff.fused_warp_kalman(*(jnp.asarray(a) for a in args),
+                               interpret=True)
+  got = tff.fused_warp_kalman(*_t(args))
+  _assert_close(got, want)
+  _assert_close(got, tff.fused_warp_kalman(*_t(args), radius=8))
+  assert tff.DEFAULT_RADIUS == 8
+
+
 @pytest.mark.parametrize("seed,oob,h,w,r,thr", CASES)
 def test_plain_matches_xla_composition(seed, oob, h, w, r, thr):
   args = make_inputs(seed=seed, oob=oob, h=h, w=w, r=r)

@@ -1,13 +1,14 @@
 """The port stands alone: kfnet_tpu_torch and chip_smoke.py import nothing
-of JAX or of the JAX package (nor orbax, tensorstore or cv2), the kernel
-build carries the flags it must, and chip_smoke.py refuses to run, printing
-no verdict, where there is no CUDA device or no port beside it. No nvcc or
-GPU is needed here.
+of JAX or of the JAX package (nor orbax, tensorstore, cv2 or PIL) and load
+nothing of its native/ library, the kernel build carries the flags it
+must, and chip_smoke.py refuses to run, printing no verdict, where there
+is no CUDA device or no port beside it. No nvcc or GPU is needed here.
 """
 
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -19,7 +20,7 @@ from kfnet_tpu_torch.kernels import _build
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "kfnet_tpu", "orbax", "optax", "tensorstore",
-             "cv2")
+             "cv2", "PIL")
 PORT_FILES = sorted((ROOT / "kfnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -39,6 +40,36 @@ def _imported_roots(path):
 def test_no_forbidden_imports(path):
   bad = set(_imported_roots(path)) & set(FORBIDDEN)
   assert not bad, f"{path} imports {bad}"
+
+
+# the JAX package's native library: its directory as a path component, or
+# the name of its committed binary
+NATIVE_REFERENCE = re.compile(r"""native/|["']native["']|libkfnet_native""")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_reference_to_the_jax_packages_native_library(path):
+  hits = [line for line in path.read_text().splitlines()
+          if NATIVE_REFERENCE.search(line)]
+  assert not hits, f"{path} refers to native/: {hits}"
+
+
+def test_host_library_is_built_from_the_ports_own_source():
+  from kfnet_tpu_torch.data import native_io
+  assert all(pathlib.Path(s).resolve().is_relative_to(ROOT / "kfnet_tpu_torch")
+             for s in native_io.SOURCES)
+  loaded = pathlib.Path(native_io.load_library()._name).resolve()
+  assert loaded.parent == pathlib.Path(_build.build_dir()).resolve()
+  assert not loaded.is_relative_to(ROOT / "native")
+
+
+def test_host_build_flags():
+  cmd = _build.host_command("g++", ["a.cpp"], "out.so")
+  for flag in ("-O3", "-std=c++17", "-fPIC", "-shared", "-lz"):
+    assert flag in cmd
+  assert not any("march" in c for c in cmd)
+  assert cmd[cmd.index("-o") + 1] == "out.so"
 
 
 def _imported_modules(path):
@@ -89,6 +120,16 @@ def test_package_import_leaves_jax_out():
           "import kfnet_tpu_torch.utils.logging;"
           "import kfnet_tpu_torch.utils.checkpoint;"
           "import kfnet_tpu_torch.tools.demo;"
+          "import kfnet_tpu_torch.utils.config;"
+          "import kfnet_tpu_torch.data.image_io, kfnet_tpu_torch.data.native_io;"
+          "import kfnet_tpu_torch.data.seven_scenes;"
+          "import kfnet_tpu_torch.data.twelve_scenes;"
+          "import kfnet_tpu_torch.data.cambridge;"
+          "import kfnet_tpu_torch.data.registry, kfnet_tpu_torch.data.pipeline;"
+          "import kfnet_tpu_torch.data.fixture;"
+          "import kfnet_tpu_torch.train.train_scoordnet;"
+          "import kfnet_tpu_torch.train.train_oflownet;"
+          "import kfnet_tpu_torch.train.train_kfnet;"
           f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules];"
           "print(bad); sys.exit(1 if bad else 0)")
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

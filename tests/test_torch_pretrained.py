@@ -110,6 +110,20 @@ def test_bf16_export_round_trip_matches_jax(tmp_path):
       jax.tree_util.tree_map(np.asarray, want)))
 
 
+@pytest.mark.parametrize("dtype", ["float16", np.float32])
+def test_load_params_values_casts_every_leaf(dtype):
+  """``load_params_values(path, dtype=...)`` casts every leaf, as the JAX
+  package's does (kfnet_tpu/utils/checkpoint.py:98)."""
+  stage = "stage3_sceneA"
+  want = jax.tree_util.tree_map(np.asarray, jckpt.load_params_values(
+      os.path.join(ORBAX, stage), dtype=np.dtype(dtype)))
+  got = tckpt.load_params_values(os.path.join(tpre.ASSETS, stage),
+                                 dtype=dtype)
+  _same_tree(got, want)
+  assert all(a.dtype == np.dtype(dtype)
+             for a in jax.tree_util.tree_leaves(got))
+
+
 def test_wrong_geometry_and_structure_are_loud(tmp_path):
   tckpt.save_params(str(tmp_path / "a"), {"w": np.zeros((2, 3), np.float32)},
                     {"params_dtype": "bfloat16"})

@@ -463,6 +463,30 @@ def test_fit_k_steps_a_call_equals_one(seq):
   assert r3.rows[-1][1]["loss"] == r1.rows[-1][1]["loss"]
 
 
+@pytest.mark.parametrize("unroll", [1, 2, 3])
+def test_multi_train_step_unroll_is_the_same_steps(seq, unroll):
+  """``unroll`` (the JAX package's scan unroll) changes nothing in the
+  eager loop: K = 3 steps equal three single steps at any unroll."""
+  opt = ttrainer.make_optimizer(ttrainer.OptimizerConfig(learning_rate=1e-3))
+  batches = [ttrainer.to_device(b, "cpu") for b in sc_batches(seq, 3)]
+  one = ttrainer.create_state(port_params("scoordnet"), opt)
+  step = ttrainer.make_train_step(sc_loss(), opt)
+  for b in batches:
+    one, m1 = step(one, b)
+  multi = ttrainer.create_state(port_params("scoordnet"), opt)
+  multi, m3 = ttrainer.make_multi_train_step(sc_loss(), opt, unroll=unroll)(
+      multi, ttrainer._stack(batches))
+  assert_same_state(one, multi)
+  assert torch.equal(m1["loss"], m3["loss"])
+
+
+@pytest.mark.parametrize("unroll", [0, -1])
+def test_multi_train_step_refuses_a_non_positive_unroll(unroll):
+  opt = ttrainer.make_optimizer(ttrainer.OptimizerConfig())
+  with pytest.raises(ValueError, match="unroll"):
+    ttrainer.make_multi_train_step(sc_loss(), opt, unroll=unroll)
+
+
 def test_fit_max_steps_exact_and_tail_trained(seq):
   s, _ = port_fit(seq, 10, max_steps=6, log_every=1000,
                   steps_per_dispatch=4)
