@@ -211,11 +211,44 @@ Phases, one line each, with their seconds:
      for the whole batch), 24 for 6 steps at T = 3; ms a step (the median
      over the steps after the first, CliTimer), the card's busy ms and
      idle share over those steps from a torch.profiler trace, the host's
-     ms between steps and within one, and peak memory.
+     ms between steps and within one, and peak memory; then 12-Scenes: a
+     fixture (S12_TRAIN + S12_TEST frames at 640x480) written by the
+     port's JPEG encoder (quality 95, 4:4:4) and one 4:2:0 file beside it,
+     every file decoded by the C++ route and by the plain numpy route,
+     bit-equal; the loaded colour within JPEG_MEAN / JPEG_MAX of the
+     render; train_scoordnet --dataset 12scenes at full width for
+     S12_STEPS steps (the per-frame loader: the batch loader reads PNG
+     only), losses and params finite;
+  12. eval: a 7-Scenes fixture (chess, EVAL_TRAIN + EVAL_TEST frames at
+     640x480) through tools/acceptance.py at full width on the card
+     (EVAL_STEPS, batch EVAL_B): every stage export present, the filtered
+     and measurement-only medians finite, each eval CLI call's launches
+     (the filtered eval's fused update EVAL_TEST - 1 a filter run,
+     evaluate_sequence's warm-up and EVAL_TIMING_REPS timed runs; none in
+     measurement-only); the run again with --pose_smooth_beta 0.4: no
+     optimizer step (every stage cached) and a finite filtered_smoothed
+     block; then the eval CLI with --kfnet_ckpt on the committed flagship
+     over the same fixture in batch, --streaming and --streaming
+     --uint8_stream, each with --dump_dir: launches (EVAL_TEST - 1 a
+     filter run), the streaming maps against the batch maps at TOL_PATH,
+     uint8 against float streaming at TOL_PATH (bit-equality recorded:
+     the device ingest multiplies by 1/255 as the JAX package's does, the
+     loaders divide by 255), the CLI's maps and poses against
+     evaluate_sequence with pretrained.load(FULL_ASSETS) on the same
+     loaded frames (TOL_PATH, POSE_RTOL / POSE_ATOL; bit-equality
+     recorded), the medians below FULL_GATE; tools/eval_poses.py on the
+     batch dump: its poses against the CLI's (same seed and solver), held
+     at POSE_RTOL / POSE_ATOL, bit-equality recorded, and its medians
+     equal;
+  13. soak: tools/soak.run_soak on the flagship at 640x480, SOAK_FRAMES
+     frames of sceneA rendered on the card a chunk at a time (chunk
+     SOAK_CHUNK): healthy (no non-finite value, covariance within the
+     measurement envelope, stationary, host RSS flat), the fused update
+     launched SOAK_FRAMES - 1 times, steady_state_fps and rss_growth_mb.
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
 nothing under artifacts/; writes only the kernel build directory, and the
-training checkpoints of phase 9 and the fixtures and train outputs of
-phase 11, in temporary directories it removes.
+training checkpoints of phase 9 and the fixtures, train outputs and dumps
+of phases 11 and 12, in temporary directories it removes.
 """
 
 import contextlib
@@ -299,6 +332,23 @@ CLI_B, CLI_T = 2, 3
 CLI_NET_SCALE = "full"
 # each script's ms a step is the median over its steps after the first
 CLI_STEPS = {"train_scoordnet": 8, "train_oflownet": 8, "train_kfnet": 6}
+# phase "data", 12-Scenes: the JPEG fixture's frames, the bound of its
+# loaded colour against the render (tests/test_acceptance.py:89-90), and
+# train_scoordnet's steps on it
+S12_TRAIN, S12_TEST = 4, 2
+JPEG_MEAN, JPEG_MAX = 0.02, 0.15
+S12_STEPS = 2
+# phase "eval": the 7-Scenes fixture's frames, the acceptance run's steps
+# and batch, evaluate_sequence's timed runs after its warm-up (so a
+# filtered eval runs the filter 1 + EVAL_TIMING_REPS times), and the net
+# scale of the flagship's CLI runs
+EVAL_TRAIN, EVAL_TEST = 8, 16
+EVAL_STEPS = {"sc_steps": 4, "of_steps": 4, "joint_steps": 2}
+EVAL_B = 2
+EVAL_TIMING_REPS = 3
+FLAGSHIP_NET_SCALE = "full"
+# phase "soak": the stream's frames and chunk (the flagship at 640x480)
+SOAK_FRAMES, SOAK_CHUNK = 960, 48
 
 
 def say(phase, t0, **fields):
@@ -1682,7 +1732,256 @@ def data_phase(dev, wrappers):
         "fused_warp_kalman": CLI_STEPS["train_kfnet"] * 2 * (CLI_T - 1),
         "conv3x3_same": 0, "conv3x3_gn_chain": 0}
     out["clis"] = clis
+    out["twelve_scenes"] = jpeg_fixture_checks(dev, tmp, models)
   return out
+
+
+def jpeg_fixture_checks(dev, tmp, models):
+  """Phase "data"'s 12-Scenes part: the fixture written by the port's JPEG
+  encoder at the full frame size, one 4:2:0 file beside it, both JPEG
+  decoders on every file, the loaded colour against the render, and
+  train_scoordnet --dataset 12scenes at full width. Returns its fields."""
+  import glob
+
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch.data import fixture, image_io
+  from kfnet_tpu_torch.data import twelve_scenes as s12
+  from kfnet_tpu_torch.train import objectives, trainer, train_scoordnet
+
+  out = {}
+  root = os.path.join(tmp, "data12")
+  t0 = time.time()
+  gt = fixture.write_twelve_scenes_fixture(
+      root, train_frames=S12_TRAIN, test_frames=S12_TEST, height=IMG[0],
+      width=IMG[1], device=dev)["apt1/kitchen"]
+  first = np.clip(gt["seq-01"]["images"][0] * 255.0 + 0.5, 0,
+                  255).astype(np.uint8)
+  image_io.write_jpeg(os.path.join(root, "frame-420.jpg"), first,
+                      quality=95, subsampling="4:2:0")
+  out["fixture_write_s"] = time.time() - t0
+  files = sorted(glob.glob(os.path.join(root, "**", "*.jpg"),
+                           recursive=True))
+  t_cpp = t_np = 0.0
+  unequal = []
+  for path in files:
+    with open(path, "rb") as f:
+      raw = f.read()
+    t = time.perf_counter()
+    a = image_io.decode_jpeg(raw)
+    t_cpp += time.perf_counter() - t
+    t = time.perf_counter()
+    b = image_io.decode_jpeg_plain(raw)
+    t_np += time.perf_counter() - t
+    if a.dtype != b.dtype or not np.array_equal(a, b):
+      unequal.append(os.path.relpath(path, root))
+  out["decode"] = {"files": len(files), "unequal": unequal,
+                   "subsampled_420": "frame-420.jpg",
+                   "cpp_ms_per_file": 1e3 * t_cpp / len(files),
+                   "numpy_ms_per_file": 1e3 * t_np / len(files)}
+  errs = []
+  for split, seq in (("train", "seq-01"), ("test", "seq-02")):
+    frames = s12.load_split(root, "apt1/kitchen", split).frames
+    for i, fr in enumerate(frames):
+      errs.append(np.abs(s12.load_frame(fr)["image"]
+                         - gt[seq]["images"][i]))
+  errs = np.stack(errs)
+  out["loaded_vs_render"] = {"frames": len(errs),
+                             "mean": float(errs.mean()),
+                             "max": float(errs.max()),
+                             "bound": {"mean": JPEG_MEAN, "max": JPEG_MAX}}
+  argv = ["--input_folder", root, "--dataset", "12scenes", "--scene",
+          "apt1/kitchen", "--model_folder", models, "--net_scale",
+          CLI_NET_SCALE, "--device", str(dev), "--batch_size", str(CLI_B),
+          "--max_steps", str(S12_STEPS)]
+  t = time.time()
+  with CliTimer(objectives, trainer, "scoordnet_objective",
+                S12_STEPS) as timer:
+    state = train_scoordnet.main(argv)
+  torch.cuda.synchronize()
+  out["train_scoordnet_12scenes"] = {
+      "seconds": time.time() - t, "steps": state.step,
+      "losses": [float(x) for x in timer.step.losses],
+      "params_finite": tree_finite(state.params)}
+  return out
+
+
+def eval_phase(dev, wrappers):
+  """Phase "eval" (module docstring, phase 12): the acceptance runner on a
+  7-Scenes fixture at full width, its cached re-run, the eval CLI on the
+  committed flagship in batch, streaming and uint8 streaming, and the
+  offline pose tool on its dump. Returns the phase's fields; the caller
+  asserts."""
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch import pretrained
+  from kfnet_tpu_torch.data import fixture
+  from kfnet_tpu_torch.data import seven_scenes as s7
+  from kfnet_tpu_torch.eval import eval_sequence
+  from kfnet_tpu_torch.eval import main as eval_main
+  from kfnet_tpu_torch.pose import ransac
+  from kfnet_tpu_torch.tools import acceptance, eval_poses
+  from kfnet_tpu_torch.train import trainer
+  from kfnet_tpu_torch.utils import checkpoint
+
+  out = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    root = os.path.join(tmp, "data")
+    t0 = time.time()
+    fixture.write_seven_scenes_fixture(root, train_frames=EVAL_TRAIN,
+                                       test_frames=EVAL_TEST, height=IMG[0],
+                                       width=IMG[1], device=dev)
+    out["fixture_write_s"] = time.time() - t0
+    work = os.path.join(tmp, "work")
+    argv = ["--dataset", "7scenes", "--root", root, "--scenes", "chess",
+            "--work_dir", work, "--net_scale", CLI_NET_SCALE,
+            "--batch_size", str(EVAL_B), "--device", str(dev)]
+    for k, v in EVAL_STEPS.items():
+      argv += [f"--{k}", str(v)]
+    runs = {}
+    for name, extra in (("first", []), ("rerun", ["--pose_smooth_beta",
+                                                  "0.4"])):
+      evals, updates = [], []
+      main_fn, update_fn = eval_main.main, trainer.Adam.update
+
+      def eval_counted(a, main_fn=main_fn, evals=evals):
+        before = {k: w.launches for k, w in wrappers.items()}
+        t = time.time()
+        reps = main_fn(a)
+        torch.cuda.synchronize()
+        evals.append({
+            "mode": ("measurement_only" if "--measurement_only" in a
+                     else "filtered"),
+            "seconds": time.time() - t,
+            "frames_per_sec": [r["frames_per_sec"] for r in reps],
+            "launches": {k: w.launches - before[k]
+                         for k, w in wrappers.items()}})
+        return reps
+
+      def update_counted(adam, *a, update_fn=update_fn, updates=updates,
+                         **kw):
+        updates.append(1)
+        return update_fn(adam, *a, **kw)
+
+      t = time.time()
+      with mock.patch.object(acceptance.eval_main, "main", eval_counted), \
+          mock.patch.object(trainer.Adam, "update", update_counted):
+        res, n = counted(wrappers, lambda: acceptance.main(argv + extra))
+      runs[name] = {
+          "seconds": time.time() - t, "optimizer_steps": len(updates),
+          "launches": n, "evals": evals,
+          "medians": {mode: {k: r[k] for k in ("median_translation_m",
+                                               "median_rotation_deg")}
+                      for mode, r in res["scenes"]["chess"].items()},
+          "exports": {stage: checkpoint.has_params(
+              os.path.join(work, stage, "export"))
+                      for stage in ("scoordnet_chess", "oflownet_7scenes",
+                                    "kfnet_chess")}}
+    out["acceptance"] = runs
+    out["filtered_launches_expected"] = {
+        "fused_warp_kalman": (EVAL_TEST - 1) * (1 + EVAL_TIMING_REPS),
+        "conv3x3_same": 0, "conv3x3_gn_chain": 0}
+    out["optimizer_steps_expected"] = sum(EVAL_STEPS.values())
+
+    # the eval CLI on the committed flagship, three ways
+    flagship = os.path.join(pretrained.FULL_ASSETS, "stage3_sceneA")
+    base = ["--input_folder", root, "--scene", "chess", "--net_scale",
+            FLAGSHIP_NET_SCALE, "--device", str(dev), "--kfnet_ckpt",
+            flagship]
+    forms = {"batch": [], "streaming": ["--streaming"],
+             "uint8_streaming": ["--streaming", "--uint8_stream"]}
+    cli, dumps = {}, {}
+    for name, extra in forms.items():
+      dumps[name] = os.path.join(tmp, f"dump_{name}")
+      t = time.time()
+      reps, n = counted(wrappers, lambda: eval_main.main(
+          base + extra + ["--dump_dir", dumps[name]]))
+      rep = reps[0]
+      cli[name] = {"seconds": time.time() - t, "launches": n,
+                   "frames": rep["frames"],
+                   "frames_per_sec": rep["frames_per_sec"],
+                   "median_translation_m": rep["median_translation_m"],
+                   "median_rotation_deg": rep["median_rotation_deg"],
+                   "median_coord_err_m": rep.get("median_coord_err_m")}
+    out["flagship_cli"] = cli
+    out["flagship_launches_expected"] = {
+        "batch": (EVAL_TEST - 1) * (1 + EVAL_TIMING_REPS),
+        "streaming": EVAL_TEST - 1, "uint8_streaming": EVAL_TEST - 1}
+    seq = "seq-02"  # the fixture's test sequence
+    maps = {k: eval_poses.load_dump_sequence(os.path.join(d, seq))
+            for k, d in dumps.items()}
+
+    def maps_close(a, b):
+      ta = {k: torch.from_numpy(a[k]) for k in ("coords", "covariance")}
+      tb = {k: torch.from_numpy(b[k]) for k in ("coords", "covariance")}
+      return {
+          "bit_equal": all(torch.equal(ta[k], tb[k]) for k in ta),
+          "coords_max_abs": (ta["coords"] - tb["coords"]).abs().max().item(),
+          "covariance_max_abs": (ta["covariance"]
+                                 - tb["covariance"]).abs().max().item(),
+          "held": all(torch.allclose(ta[k], tb[k], rtol=TOL_PATH,
+                                     atol=TOL_PATH) for k in ta)}
+
+    def poses_close(a, b):
+      ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+      return {"bit_equal": bool(torch.equal(ta, tb)),
+              "max_abs": (ta - tb).abs().max().item(),
+              "held": bool(torch.allclose(ta, tb, rtol=POSE_RTOL,
+                                          atol=POSE_ATOL))}
+
+    out["streaming_vs_batch"] = maps_close(maps["streaming"], maps["batch"])
+    # the device ingest multiplies uint8 by 1/255 (the JAX package's
+    # arithmetic), the loaders divide: an ulp apart at the input for some
+    # values, so bit-equality is recorded and TOL_PATH held
+    out["uint8_vs_float_streaming"] = maps_close(maps["uint8_streaming"],
+                                                 maps["streaming"])
+    cfg, params = pretrained.load(pretrained.FULL_ASSETS, device=dev)
+    split = s7.load_split(root, "chess", "test")
+    frames = np.stack([s7.load_frame(f)["image"] for f in split.frames])
+    ref = eval_sequence.evaluate_sequence(
+        params, cfg, frames, split.intrinsics, timing_reps=1,
+        ransac_config=ransac.RansacConfig(), device=dev)
+    out["cli_vs_evaluate_sequence"] = {
+        "maps": maps_close(maps["batch"], {"coords": ref.coords,
+                                           "covariance": ref.covariance}),
+        "poses": poses_close(maps["batch"]["pose"], ref.poses)}
+    batch = cli["batch"]
+    out["flagship_gate"] = {
+        "gate": FULL_GATE,
+        "medians": {k: batch[k] for k in FULL_GATE},
+        "passed": all(batch[k] < v for k, v in FULL_GATE.items())}
+    t = time.time()
+    offline = eval_poses.main(["--dump_dir", dumps["batch"], "--device",
+                               str(dev)])[0]
+    resolved = eval_poses.solve_sequence(
+        maps["batch"]["coords"], maps["batch"]["covariance"],
+        split.intrinsics, 8, ransac.RansacConfig(), seed=0, device=dev)
+    out["eval_poses"] = {
+        "seconds": time.time() - t,
+        "poses_vs_eval_main": poses_close(resolved, maps["batch"]["pose"]),
+        "medians_equal": all(offline[k] == batch[k] for k in FULL_GATE)}
+  return out
+
+
+def soak_phase(dev, wrappers):
+  """Phase "soak" (module docstring, phase 13): tools/soak.run_soak on the
+  flagship over SOAK_FRAMES frames of sceneA rendered on the card at its
+  export's size, chunk SOAK_CHUNK. Returns the phase's fields."""
+  from kfnet_tpu_torch import pretrained
+  from kfnet_tpu_torch.tools import protocol, soak
+  from kfnet_tpu_torch.utils import checkpoint
+
+  cfg, params = pretrained.load(pretrained.FULL_ASSETS, device=dev)
+  meta = checkpoint.load_meta(os.path.join(pretrained.FULL_ASSETS,
+                                           "stage3_sceneA"))
+  spec = next(s for s in protocol.DEFAULT_SCENES if s.name == "sceneA")
+  report, n = counted(wrappers, lambda: soak.run_soak(
+      params, cfg, SOAK_FRAMES, int(meta["height"]), int(meta["width"]),
+      chunk=SOAK_CHUNK, seed=spec.seed, scale=spec.scale, log=None))
+  return {"report": report, "problems": soak.healthy(report),
+          "launches": n,
+          "launches_expected": {"fused_warp_kalman": SOAK_FRAMES - 1,
+                                "conv3x3_same": 0, "conv3x3_gn_chain": 0}}
 
 
 def main():
@@ -2409,6 +2708,76 @@ def main():
   if cli_kf["launches"] != cli_kf["launches_expected"]:
     raise AssertionError(f"train_kfnet launches {cli_kf['launches']}, "
                          f"expected {cli_kf['launches_expected']}")
+  s12 = data["twelve_scenes"]
+  if s12["decode"]["unequal"] or s12["decode"]["files"] != (
+      S12_TRAIN + S12_TEST + 1):
+    raise AssertionError(f"the C++ and numpy JPEG decoders differ: "
+                         f"{s12['decode']}")
+  lvr = s12["loaded_vs_render"]
+  if not (lvr["mean"] < JPEG_MEAN and lvr["max"] < JPEG_MAX):
+    raise AssertionError(f"12-Scenes colour off the render: {lvr}")
+  t12 = s12["train_scoordnet_12scenes"]
+  if not (t12["steps"] == S12_STEPS and len(t12["losses"]) == S12_STEPS
+          and np.isfinite(t12["losses"]).all() and t12["params_finite"]):
+    raise AssertionError(f"train_scoordnet on 12-Scenes: {t12}")
+
+  # 12. evaluation: acceptance, the eval CLI on the flagship, eval_poses
+  t0 = time.time()
+  ev = eval_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("eval", t0, gpu=gpu, nvidia_smi=smi, **ev,
+      total_seconds=round(time.time() - t_all, 1))
+  first, rerun = ev["acceptance"]["first"], ev["acceptance"]["rerun"]
+  if not all(first["exports"].values()):
+    raise AssertionError(f"acceptance exports: {first['exports']}")
+  if first["optimizer_steps"] != ev["optimizer_steps_expected"] or \
+      rerun["optimizer_steps"]:
+    raise AssertionError(f"acceptance optimizer steps {first['optimizer_steps']}"
+                         f" then {rerun['optimizer_steps']}, expected "
+                         f"{ev['optimizer_steps_expected']} then 0")
+  for name, run in ev["acceptance"].items():
+    if not all(np.isfinite(list(m.values())).all()
+               for m in run["medians"].values()):
+      raise AssertionError(f"acceptance {name} medians: {run['medians']}")
+    for e in run["evals"]:
+      want = (ev["filtered_launches_expected"] if e["mode"] == "filtered"
+              else {k: 0 for k in wrappers})
+      if e["launches"] != want:
+        raise AssertionError(f"acceptance {name} {e['mode']} launches "
+                             f"{e['launches']}, expected {want}")
+  if "filtered_smoothed" not in rerun["medians"]:
+    raise AssertionError(f"acceptance re-run: {rerun['medians']}")
+  for name, r in ev["flagship_cli"].items():
+    want = ev["flagship_launches_expected"][name]
+    if r["launches"]["fused_warp_kalman"] != want or \
+        r["frames"] != EVAL_TEST or not np.isfinite(
+            r["median_translation_m"]):
+      raise AssertionError(f"flagship eval {name}: {r}, fused launches "
+                           f"expected {want}")
+  for key in ("streaming_vs_batch", "uint8_vs_float_streaming"):
+    if not ev[key]["held"]:
+      raise AssertionError(f"{key}: {ev[key]}")
+  if not ev["flagship_gate"]["passed"]:
+    raise AssertionError(f"the flagship's medians on the fixture: "
+                         f"{ev['flagship_gate']}")
+  cvs = ev["cli_vs_evaluate_sequence"]
+  if not (cvs["maps"]["held"] and cvs["poses"]["held"]):
+    raise AssertionError(f"the eval CLI off evaluate_sequence: {cvs}")
+  if not (ev["eval_poses"]["poses_vs_eval_main"]["held"]
+          and ev["eval_poses"]["medians_equal"]):
+    raise AssertionError(f"eval_poses off eval.main: {ev['eval_poses']}")
+
+  # 13. the long-stream soak of the flagship
+  t0 = time.time()
+  sk = soak_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("soak", t0, gpu=gpu, nvidia_smi=smi, **sk,
+      total_seconds=round(time.time() - t_all, 1))
+  if sk["problems"] or sk["report"]["frames"] != SOAK_FRAMES:
+    raise AssertionError(f"soak unhealthy: {sk['problems']}")
+  if sk["launches"] != sk["launches_expected"]:
+    raise AssertionError(f"soak launches {sk['launches']}, expected "
+                         f"{sk['launches_expected']}")
 
   bad = [m for m in FORBIDDEN if m in sys.modules]
   if bad:
@@ -2424,6 +2793,13 @@ def main():
               **{f"pretrained_full_{k}": v["launches"]
                  for k, v in full["configs"].items()},
               "data_train_kfnet": cli_kf["launches"],
+              "eval_acceptance": ev["acceptance"]["first"]["launches"],
+              "eval_flagship": ev["flagship_cli"]["batch"]["launches"],
+              "eval_flagship_streaming":
+                  ev["flagship_cli"]["streaming"]["launches"],
+              "eval_flagship_uint8":
+                  ev["flagship_cli"]["uint8_streaming"]["launches"],
+              "soak": sk["launches"],
               **{f"fleet_{k}": v["launches"]
                  for k, v in fleet_checks.items()}}
   phase_launches = lambda k: {p: v[k] for p, v in by_phase.items()}

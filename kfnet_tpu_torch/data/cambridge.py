@@ -103,7 +103,7 @@ def load_split(root: str, scene: str, split: str = "train",
 def load_frame(frame: Frame, poses: dict,
                image_size: tuple[int, int] = CAMBRIDGE_IMAGE_SIZE) -> dict:
   th, tw = image_size
-  rgb = image_io.to_rgb(image_io.read_png(frame.color_path))
+  rgb = image_io.to_rgb(image_io.read_image(frame.color_path))
   if rgb.shape[:2] != (th, tw):
     rgb = image_io.resize_bilinear(rgb, (th, tw))
   out = {

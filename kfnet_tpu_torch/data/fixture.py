@@ -17,10 +17,14 @@ world-to-camera quaternion), and rendered-depth ``<stem>.depth.png``
 files for the train frames only (test frames exercise the depth-less
 path).
 
+12-Scenes (``data/twelve_scenes.py``): nested <building>/<room> scene
+directories, the frame triplets one level down under <seq>/data/, colour
+as baseline JPEG (quality 95, 4:4:4, as the JAX package's fixture writes
+it with PIL).
+
 Frames are rendered by the port's ``data/synthetic.py`` (on ``device``:
 ``cuda`` unless given) under each dataset's preset camera, and written by
-the port's PNG encoder (``image_io``). The 12-Scenes writer needs a JPEG
-encoder, which the port does not have yet: it raises.
+the port's PNG and JPEG encoders (``image_io``).
 """
 
 from __future__ import annotations
@@ -96,11 +100,52 @@ def write_seven_scenes_fixture(root: str, scenes=("chess",),
   return out
 
 
-def write_twelve_scenes_fixture(root: str, *args, **kwargs) -> dict:
-  """The 12-Scenes layout holds JPEG colour, which the port cannot write
-  (nor read) yet."""
-  raise image_io.jpeg_error(os.path.join(root, "<scene>", "seq-01", "data",
-                                         "frame-000000.color.jpg"))
+def write_twelve_scenes_fixture(root: str, scenes=("apt1/kitchen",),
+                                train_frames: int = 8,
+                                test_frames: int = 6,
+                                height: int = SEVEN_SCENES_HW[0],
+                                width: int = SEVEN_SCENES_HW[1],
+                                seed: int = 0, device=None) -> dict:
+  """12-Scenes layout: nested <building>/<room> scene directories, the
+  frame triplets under <seq>/data/, JPEG colour (quality 95, 4:4:4: the
+  returned ground-truth images are the frames before compression, so
+  compare with a lossy tolerance), 16-bit mm depth PNGs,
+  one pose file a frame. Renders under the 12-Scenes preset camera (572,
+  572, 320, 240), scaled to the frame size."""
+  from kfnet_tpu_torch.data import twelve_scenes as s12
+
+  out = {}
+  for si, scene in enumerate(scenes):
+    scene_seed = seed + 37 * si
+    sdir = os.path.join(root, scene)
+    os.makedirs(sdir, exist_ok=True)
+    with open(os.path.join(sdir, "TrainSplit.txt"), "w") as f:
+      f.write("sequence1\n")
+    with open(os.path.join(sdir, "TestSplit.txt"), "w") as f:
+      f.write("sequence2\n")
+    gt = {}
+    for seq, n, traj_seed in (("seq-01", train_frames, scene_seed + 1),
+                              ("seq-02", test_frames, scene_seed + 99)):
+      K = geo.make_intrinsics(*s12.TWELVE_SCENES_K).numpy()
+      K = K * np.asarray([[width / 640.0], [height / 480.0], [1.0]],
+                         np.float32)
+      data = _host(synthetic.make_sequence(
+          n, height=height, width=width, seed=scene_seed,
+          traj_seed=traj_seed, K=K, device=device))
+      seq_dir = os.path.join(sdir, seq, "data")
+      os.makedirs(seq_dir, exist_ok=True)
+      for t in range(n):
+        base = os.path.join(seq_dir, f"frame-{t:06d}")
+        rgb = np.clip(data["images"][t] * 255.0 + 0.5, 0, 255).astype(
+            np.uint8)
+        image_io.write_jpeg(base + ".color.jpg", rgb)
+        mm = np.clip(data["depths"][t] * 1000.0 + 0.5, 0,
+                     65000).astype(np.uint16)
+        image_io.write_png(base + ".depth.png", mm)
+        np.savetxt(base + ".pose.txt", data["poses"][t], fmt="%.9f")
+      gt[seq] = data
+    out[scene] = gt
+  return out
 
 
 def _matrix_to_quat(R: np.ndarray) -> np.ndarray:

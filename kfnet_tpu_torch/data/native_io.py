@@ -1,6 +1,7 @@
 """ctypes bridge to the port's host data path, ``data/csrc/kfnet_native.cpp``
-(port of ``kfnet_tpu/data/native_io.py``): PNG decode, fused depth ->
-label generation and the multi-threaded batch loader.
+(port of ``kfnet_tpu/data/native_io.py``): PNG decode, JPEG decode (the
+port's own addition, for 12-Scenes colour), fused depth -> label
+generation and the multi-threaded batch loader.
 
 The library is built from the source in the checkout at first use, with
 the host's C++ compiler (``kernels/_build.py``: cached by source hash under
@@ -46,6 +47,12 @@ def load_library() -> ctypes.CDLL:
   lib.kfn_png_decode_rgb_f32.restype = c.c_int
   lib.kfn_png_decode_rgb_f32.argtypes = [c.c_char_p, c.c_size_t,
                                          c.POINTER(c.c_float)]
+  lib.kfn_jpeg_info.restype = c.c_int
+  lib.kfn_jpeg_info.argtypes = [c.c_char_p, c.c_size_t, c.POINTER(c.c_int),
+                                c.POINTER(c.c_int), c.POINTER(c.c_int)]
+  lib.kfn_jpeg_decode.restype = c.c_int
+  lib.kfn_jpeg_decode.argtypes = [c.c_char_p, c.c_size_t,
+                                  c.POINTER(c.c_uint8)]
   lib.kfn_depth_to_labels.restype = c.c_int
   lib.kfn_depth_to_labels.argtypes = [
       c.c_char_p, c.c_size_t, c.POINTER(c.c_float), c.POINTER(c.c_float),
@@ -99,6 +106,27 @@ def decode(data: bytes) -> np.ndarray:
   if rc != 0:
     raise ValueError(f"PNG decode failed ({rc})")
   return out[..., 0] if c == 1 else out
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+  """JPEG bytes -> (H, W) uint8 for one component, else (H, W, 3) uint8
+  RGB (the scope and arithmetic of ``image_io.decode_jpeg_plain``, which
+  the tests hold it against). Raises ``image_io.jpeg_exception``'s exception
+  for the library's return code."""
+  from kfnet_tpu_torch.data import image_io
+  lib = load_library()
+  data = bytes(data)
+  w, h, c = (ctypes.c_int() for _ in range(3))
+  rc = lib.kfn_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                         ctypes.byref(c))
+  if rc != 0:
+    raise image_io.jpeg_exception(rc, str(c.value) if rc == -3 else "")
+  out = np.empty((h.value, w.value, c.value), np.uint8)
+  rc = lib.kfn_jpeg_decode(data, len(data),
+                           out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+  if rc != 0:
+    raise image_io.jpeg_exception(rc)
+  return out[..., 0] if c.value == 1 else out
 
 
 def _read(path: str) -> bytes:

@@ -10,12 +10,11 @@ Disk layout (the public MSR 7-Scenes release):
     <root>/<scene>/seq-XX/frame-XXXXXX.pose.txt    (4x4 camera-to-world)
 
 12-Scenes ships the same frame triplets under <root>/<building>/<room>/
-<seq>/data/, with JPEG colour, which the port does not decode yet
-(``image_io.read_color`` raises by name).
+<seq>/data/, with JPEG colour.
 
-Files decode on the host through the port's PNG codec (``image_io``, no
-PIL); everything returns numpy (the batches go to the device in
-``pipeline.py``).
+Files decode on the host through the port's PNG and JPEG codecs
+(``image_io``, no PIL); everything returns numpy (the batches go to the
+device in ``pipeline.py``).
 """
 
 from __future__ import annotations

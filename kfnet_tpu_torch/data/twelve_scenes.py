@@ -5,10 +5,8 @@ depth.png,pose.txt} with TrainSplit.txt / TestSplit.txt beside the
 sequences (the 7-Scenes frame triplets, JPEG colour, mm depth). The
 loader is ``seven_scenes``'s with 12-Scenes intrinsics (fx = fy = 572,
 640x480); scenes are named "building/room" (e.g. "apt1/kitchen").
-
-The port does not decode JPEG yet: a colour read raises
-``NotImplementedError`` naming JPEG (``image_io``); splits, depth and
-poses load.
+Colour decodes through the port's JPEG decoder (``image_io.read_color``,
+the C++ route).
 """
 
 from __future__ import annotations

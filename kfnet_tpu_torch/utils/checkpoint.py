@@ -47,8 +47,14 @@ def _describe(node, path, arrays):
     kind = "list" if isinstance(node, list) else "tuple"
     return {kind: [_describe(v, f"{path}/{i}", arrays)
                    for i, v in enumerate(node)]}
-  a = np.asarray(node)
   key = path.lstrip("/")
+  if isinstance(node, torch.Tensor):
+    node = node.detach().cpu()
+    if node.dtype == torch.bfloat16:  # numpy has none: its bit pattern
+      arrays[key] = node.view(torch.int16).numpy().view(np.uint16)
+      return {"leaf": key, "dtype": "bfloat16"}
+    node = node.numpy()
+  a = np.asarray(node)
   if a.dtype.name == "bfloat16":
     arrays[key] = a.view(np.uint16)
     return {"leaf": key, "dtype": "bfloat16"}
@@ -59,7 +65,8 @@ def _describe(node, path, arrays):
 def save_params(directory: str, params, meta: dict | None = None,
                 compressed: bool = False):
   """Write ``params`` (a tree of dicts, lists and tuples with array
-  leaves) as ``<directory>/params.npz``, and ``meta`` as ``meta.json``.
+  leaves: numpy arrays or host tensors, bf16 tensors stored as their bit
+  pattern) as ``<directory>/params.npz``, and ``meta`` as ``meta.json``.
   ``compressed`` deflates the arrays (``np.savez_compressed``); the
   reader takes both forms."""
   os.makedirs(directory, exist_ok=True)

@@ -6,8 +6,9 @@ Held bit for bit: both PNG decoders (the C++ route and the plain numpy
 route) on 8-bit grey, RGB and RGBA and 16-bit grey, under each of the
 five row filters, a mix of them, and PIL's own files; the port's encoder
 read back by PIL; the nearest resize against PIL's NEAREST. Held within
-one level of 255: the bilinear resize against PIL's BILINEAR. JPEG, a
-palette PNG and a library that does not build raise by name.
+one level of 255: the bilinear resize against PIL's BILINEAR. A
+progressive JPEG, a palette PNG and a library that does not build raise
+by name (the JPEG codec's own tests: tests/test_torch_jpeg.py).
 """
 
 import io
@@ -155,13 +156,19 @@ def test_resize_nearest_equals_pil(size):
 
 
 def test_jpeg_raises_by_name(tmp_path):
+  """JPEG is decoded now (tests/test_torch_jpeg.py); what stays outside
+  the decoder's scope raises naming it: a progressive file through
+  read_color, and a JPEG handed to the PNG reader, which is not a PNG."""
   path = str(tmp_path / "frame-000000.color.jpg")
-  Image.fromarray(pixels("rgb8")).save(path, quality=95)
-  for read in (image_io.read_color, image_io.read_png):
-    with pytest.raises(NotImplementedError, match="JPEG.*ROADMAP"):
-      read(path)
-  with pytest.raises(NotImplementedError, match="JPEG"):
-    fixture.write_twelve_scenes_fixture(str(tmp_path / "fx"))
+  Image.fromarray(pixels("rgb8")).save(path, quality=95, progressive=True)
+  with pytest.raises(NotImplementedError, match=r"progressive \(SOF2\)"):
+    image_io.read_color(path)
+  with pytest.raises(ValueError, match="corrupt PNG"):
+    image_io.read_png(path)
+  gt = fixture.write_twelve_scenes_fixture(str(tmp_path / "fx"),
+                                           train_frames=1, test_frames=1,
+                                           height=16, width=16, device="cpu")
+  assert gt["apt1/kitchen"]["seq-01"]["images"].shape == (1, 16, 16, 3)
 
 
 def test_unsupported_pngs_raise(tmp_path):

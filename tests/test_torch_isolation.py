@@ -130,6 +130,12 @@ def test_package_import_leaves_jax_out():
           "import kfnet_tpu_torch.train.train_scoordnet;"
           "import kfnet_tpu_torch.train.train_oflownet;"
           "import kfnet_tpu_torch.train.train_kfnet;"
+          "import kfnet_tpu_torch.eval.stats, kfnet_tpu_torch.eval.main;"
+          "import kfnet_tpu_torch.tools.eval_poses;"
+          "import kfnet_tpu_torch.tools.acceptance;"
+          "import kfnet_tpu_torch.tools.soak, kfnet_tpu_torch.tools.protocol;"
+          "import kfnet_tpu_torch.tools.export_release;"
+          "import kfnet_tpu_torch.utils.tf1_import;"
           f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules];"
           "print(bad); sys.exit(1 if bad else 0)")
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
