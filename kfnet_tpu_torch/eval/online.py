@@ -34,6 +34,7 @@ from kfnet_tpu_torch.filter import sequence
 from kfnet_tpu_torch.filter.sequence import GraphedStep
 from kfnet_tpu_torch.models import kfnet
 from kfnet_tpu_torch.nn import layers as L
+from kfnet_tpu_torch.parallel.mesh import Sharded
 from kfnet_tpu_torch.pose import ransac, smoothing
 
 
@@ -227,24 +228,48 @@ class FleetRelocalizer(_Relocalizer):
   {"pending": True, ...})``; ``flush()`` drains the tail.
 
   Each slot may have its own pose smoother (``smoother``), reset when the
-  tick that reset its slot is finalized. Slots split across GPUs (the JAX
-  package's ``mesh=`` / ``axis_name=``) wait for the multi-GPU port;
-  passing either raises.
+  tick that reset its slot is finalized.
+
+  With a ``mesh`` (``parallel.mesh.Mesh``), the slots are split into
+  contiguous groups, one per mesh entry, as the JAX package shards them
+  over its mesh: each entry filters its group on its device with its own
+  graphed step and its share of the reset mask. The maps of all B slots
+  are then gathered on the first entry's device and solved there at once,
+  from the one generator, as the one-device fleet solves them: the draws,
+  and so the poses, do not depend on the split. ``state`` is (x, P, feat)
+  as ``Sharded`` values along the slots; ``tick`` returns the (B, 19)
+  block on the first entry's device.
   """
 
   def __init__(self, params, config: kfnet.KFNetConfig, K, batch_size: int,
                ransac_config: ransac.RansacConfig | None = None,
                stride: int = 8, solve_pose: bool = True, seed: int = 0,
-               mesh=None, axis_name: str | None = None,
+               mesh=None, axis_name: str = "data",
                smoother: smoothing.SmootherConfig | None = None,
                pipeline_depth: int = 0, device=None,
                graph: bool | None = None):
-    if mesh is not None or axis_name is not None:
-      raise NotImplementedError(
-          "FleetRelocalizer(mesh=..., axis_name=...): slots across GPUs are "
-          "not ported yet; the fleet runs on one device")
     if pipeline_depth < 0:
       raise ValueError(f"pipeline_depth must be >= 0, got {pipeline_depth}")
+    self._entries = None
+    if mesh is not None:
+      mesh.check_axis(axis_name)
+      if batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} must be divisible by "
+                         f"mesh size {mesh.size}")
+      if device is not None:
+        raise ValueError("give a mesh or a device, not both")
+      device = mesh.devices[0]
+      on = {}  # the params placed once per device
+      for dev in mesh.devices:
+        if dev not in on:
+          on[dev] = L.tree_map(lambda p, d=dev: p.to(d), params)
+      params = on[device]
+      # each entry: its slots' carry and graphed step on its device
+      self._entries = [
+          FleetRelocalizer(on[dev], config, K, batch_size // mesh.size,
+                           solve_pose=False, device=dev, graph=graph)
+          for dev in mesh.devices]
+      self._mesh = mesh
     super().__init__(params, config, K, ransac_config, stride, solve_pose,
                      seed, device, graph)
     self._B = batch_size
@@ -265,6 +290,8 @@ class FleetRelocalizer(_Relocalizer):
     self._pending.clear()
     for sm in self._smoothers or ():
       sm.reset()
+    for e in self._entries or ():
+      e.reset()
 
   def _mask(self, reset) -> torch.Tensor:
     if reset is None:
@@ -297,6 +324,8 @@ class FleetRelocalizer(_Relocalizer):
     frames = _host_frames(images, self.device)
     if frames.shape[0] != self._B:
       raise ValueError(f"expected batch {self._B}, got {frames.shape[0]}")
+    if self._entries is not None:
+      return self._tick_split(frames, reset)
     if self._carry is None:  # every slot fresh; the mask means nothing
       self._first(frames)
       frac = torch.zeros((self._B, 1), dtype=torch.float32,
@@ -307,6 +336,30 @@ class FleetRelocalizer(_Relocalizer):
     parts = [frac]
     if self._solve:
       parts += self._solve_packed()
+    return torch.cat(parts, dim=1)
+
+  def _tick_split(self, frames, reset):
+    """tick() over the mesh: each entry's filter step on its slots, then
+    one pose solve of the maps gathered on the first entry's device."""
+    if reset is not None:
+      reset = np.asarray(reset, bool)
+      if reset.shape != (self._B,):
+        raise ValueError(f"reset mask of shape {reset.shape}, expected "
+                         f"({self._B},)")
+    b = self._B // len(self._entries)
+    fracs = Sharded([e.tick(frames[i * b:(i + 1) * b],
+                            None if reset is None else reset[i * b:(i + 1) * b])
+                     for i, e in enumerate(self._entries)], 0,
+                    self._mesh.devices)
+    self._carry = tuple(Sharded([e._carry[k] for e in self._entries], 0,
+                                self._mesh.devices) for k in range(3))
+    self._ticks += 1
+    parts = [fracs.full()]
+    if self._solve:
+      x, P = self._carry[0].full(), self._carry[1].full()
+      parts += _packed_parts(ransac.solve_pnp_from_maps(
+          x, P, torch.ones_like(P, dtype=torch.bool), self._K, self._gen,
+          stride=self._stride, config=self._rcfg))
     return torch.cat(parts, dim=1)
 
   def _to_host(self, packed):

@@ -31,6 +31,7 @@ import kfnet_tpu_torch
 from kfnet_tpu_torch.kernels import launches
 from kfnet_tpu_torch.models import kfnet
 from kfnet_tpu_torch.nn import layers as L
+from kfnet_tpu_torch.parallel import mesh as mesh_lib
 
 
 class GraphedStep:
@@ -136,14 +137,16 @@ def _no_aux(aux):
   return {}
 
 
-def _graph_key(config, frame, return_aux):
-  return (config, tuple(frame.shape), frame.dtype, frame.device, return_aux)
+def _graph_key(config, frame, return_aux, entry=None):
+  return (config, tuple(frame.shape), frame.dtype, frame.device, return_aux,
+          entry)
 
 
-def _captured_step(params, config, carry, frame, return_aux):
+def _captured_step(params, config, carry, frame, return_aux, entry=None):
   """(step, its outputs for this frame): the kept graph replayed when it
-  fits, else a new capture (whose warm-up is this frame's step)."""
-  key = _graph_key(config, frame, return_aux)
+  fits, else a new capture (whose warm-up is this frame's step). ``entry``
+  keeps one graph per (mesh, entry): a mesh may name one device twice."""
+  key = _graph_key(config, frame, return_aux, entry)
   step = _graphs.get(key)
   if step is not None and step.fits(params, frame, carry):
     return step, step.replay(frame, carry)
@@ -193,7 +196,8 @@ def frames_to_device(images, device: torch.device) -> torch.Tensor:
   return images.to(device, non_blocking=True)
 
 
-def _filter_steps(params, config, frames, carry, return_aux, graph):
+def _filter_steps(params, config, frames, carry, return_aux, graph,
+                  entry=None):
   """The filter steps over ``frames`` (preprocessed, on the device) from
   ``carry``. Returns (xs, Ps, final carry, stacked aux or None)."""
   n = frames.shape[0]
@@ -209,7 +213,7 @@ def _filter_steps(params, config, frames, carry, return_aux, graph):
       carry = (x1, P1, feat1)
     elif step is None:  # the weights are checked once a call
       step, aux = _captured_step(params, config, carry, frames[t],
-                                 return_aux)
+                                 return_aux, entry)
       carry = step.carry
     else:
       aux = step.replay(frames[t], carry)
@@ -248,13 +252,20 @@ def run_filter(params, config: kfnet.KFNetConfig, images,
   """
   params, device = placed(params, device)
   graph = _use_graph(device, graph)
-  frames = kfnet.preprocess_images(config, frames_to_device(images, device))
+  return _run_filter(params, config, frames_to_device(images, device), carry,
+                     return_aux, graph)
+
+
+def _run_filter(params, config, frames, carry, return_aux, graph,
+                entry=None):
+  """run_filter on frames and params already on their device."""
+  frames = kfnet.preprocess_images(config, frames)
   lead = None
   if carry is None:
     x0, P0, feat0 = kfnet.first_step(params, config, frames[0])
     carry, frames, lead = (x0, P0, feat0), frames[1:], (x0, P0)
   xs, Ps, carry, auxs = _filter_steps(params, config, frames, carry,
-                                      return_aux, graph)
+                                      return_aux, graph, entry)
   if lead is not None:
     xs = torch.cat([lead[0][None], xs])
     Ps = torch.cat([lead[1][None], Ps])
@@ -400,6 +411,77 @@ def run_filter_batched(params, config: kfnet.KFNetConfig, images,
   """
   xs, Ps, _ = run_filter(params, config, images, device=device, graph=graph)
   return xs, Ps
+
+
+class Placements:
+  """A params tree placed once per device: ``get(params, device)`` copies
+  ``params`` to ``device`` on its first call there (``placed``: none where
+  they are there already) and returns that placement while the source's
+  tensors are unchanged (no in-place update, none replaced). The
+  counterpart of the JAX package's cached ``device_put`` of the params
+  under a mesh; like its ``lru_cache``, it keeps what it placed for the
+  life of the process. ``copies`` counts the copies made, ``hits`` the
+  calls that found their placement kept."""
+
+  def __init__(self):
+    self._kept: dict = {}
+    self.copies = 0
+    self.hits = 0
+
+  def get(self, params, device):
+    device = torch.device(device)
+    leaves = L.tree_leaves(params)
+    state = tuple((t._version, t.data_ptr()) for t in leaves)
+    key = (id(params), device)
+    kept = self._kept.get(key)
+    if kept is not None and kept[0] is params and kept[1] == state:
+      self.hits += 1
+      return kept[2]
+    out, _ = placed(params, device)
+    if out is not params:
+      self.copies += 1
+    self._kept[key] = (params, state, out)
+    return out
+
+
+# The fleet's params, placed once per device across calls.
+_fleet_params = Placements()
+
+
+def run_filter_fleet(params, config: kfnet.KFNetConfig, images, mesh,
+                     axis_name: str = "data"):
+  """Multi-GPU serving: B independent sequences split over the mesh's
+  entries (the JAX package's ``run_filter_fleet``).
+
+  Streams never interact, so the split needs no collective: entry i
+  filters its contiguous group of B / n streams with
+  :func:`run_filter_batched` on its device, its filter step its own graph
+  (one per (config, frame shape, entry), kept across calls). The params
+  are placed once per device and kept (``_fleet_params``): a repeat call
+  with the same params neither copies them nor captures again. One thread
+  enqueues every entry's steps, entry after entry.
+
+  Args:
+    images: (T, B, H, W, 3) time-major frames; the mesh size must divide B.
+    mesh: a ``parallel.mesh.Mesh``.
+
+  Returns:
+    xs (T, B, h, w, 3), Ps (T, B, h, w, 1), each a ``Sharded`` along B.
+  """
+  mesh.check_axis(axis_name)
+  n, B = mesh.size, images.shape[1]
+  if B % n:
+    raise ValueError(f"batch {B} must be divisible by mesh size {n}")
+  shards = mesh_lib.split(mesh, images, axis=1)
+  xs, Ps = [], []
+  for i, (dev, frames) in enumerate(zip(mesh.devices, shards.shards)):
+    p = _fleet_params.get(params, dev)
+    x, P, _ = _run_filter(p, config, frames, None, False,
+                          _use_graph(dev, None), entry=(mesh, i))
+    xs.append(x)
+    Ps.append(P)
+  return (mesh_lib.Sharded(xs, 1, mesh.devices),
+          mesh_lib.Sharded(Ps, 1, mesh.devices))
 
 
 def run_filter_python_loop(params, config: kfnet.KFNetConfig, images,

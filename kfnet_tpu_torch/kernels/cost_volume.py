@@ -20,9 +20,19 @@ def cost_volume(feat_prev: torch.Tensor, feat_cur: torch.Tensor,
   product is exact in f32). One pass per row offset dy: the padded
   previous rows are unfolded into their 2r+1 column shifts (a view), so
   the volume takes 2r+1 products instead of (2r+1)²."""
-  h, w, c = feat_prev.shape[-3:]
   r = radius
-  prev_p = F.pad(feat_prev.to(torch.float32), (0, 0, r, r, r, r))
+  return correlate(F.pad(feat_prev.to(torch.float32), (0, 0, r, r)),
+                   feat_cur, r)
+
+
+def correlate(prev_ext: torch.Tensor, feat_cur: torch.Tensor,
+              radius: int) -> torch.Tensor:
+  """The cost volume of ``feat_cur`` (..., H, W, C) against ``prev_ext``,
+  the previous features with ``radius`` more columns on each side (zeros
+  past the map's edges; a W-shard's halo from its neighbours)."""
+  h, w, c = feat_cur.shape[-3:]
+  r = radius
+  prev_p = F.pad(prev_ext.to(torch.float32), (0, 0, 0, 0, r, r))
   cur32 = feat_cur.to(torch.float32)
   scale = 1.0 / float(c)
   slabs = []

@@ -154,19 +154,27 @@ def _fused_suffix_start(config: SCoordNetConfig) -> int:
 def _apply_fused_trunk(params, config: SCoordNetConfig,
                        image: torch.Tensor) -> torch.Tensor:
   """One (H', W', C) frame after the stem: the serial prefix, then the
+  fused suffix (``_fused_suffix``). Returns (1, 4, h, w) float32."""
+  k = _fused_suffix_start(config)
+  layers_list = _layer_list(config, single_frame=True)
+  x, _ = to_nchw(image)
+  for i in range(k):  # serial prefix (strided or narrow layers)
+    x = layers_list[i].apply(params[i], x)
+  return _fused_suffix(params, config, L.frame_hwc(x))
+
+
+def _fused_suffix(params, config: SCoordNetConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+  """The serial prefix's (h, w, c) output -> (1, 4, h, w) float32: the
   1/8-res GroupNorm trunk as a chain of ``conv3x3_gn_chain`` kernels whose
   prologues apply the previous layer's GroupNorm + ReLU and whose epilogues
   give the sums for the next, then a float32 normalize + ReLU and the f32
-  1x1 head. Returns (1, 4, h, w) float32."""
+  1x1 head."""
   from kfnet_tpu_torch.kernels.conv3x3 import conv3x3_gn_chain, gn_scale_shift
 
   k = _fused_suffix_start(config)
   layers_list = _layer_list(config, single_frame=True)
   n_blocks = len(config.channels)
-  x, _ = to_nchw(image)
-  for i in range(k):  # serial prefix (strided or narrow layers)
-    x = layers_list[i].apply(params[i], x)
-  x = L.frame_hwc(x)
   h, w, c = x.shape
   scale = torch.ones((c,), dtype=torch.float32, device=x.device)
   shift = torch.zeros((c,), dtype=torch.float32, device=x.device)

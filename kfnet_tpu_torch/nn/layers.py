@@ -25,6 +25,15 @@ What is carried over exactly from the JAX package:
     rounding; every other conv takes the path above. The JAX package
     decides "single frame" by ``x.ndim == 3``; here the models build the
     layers for one frame (``frame_impl``) and the layer takes (1, C, H, W).
+
+A layer also applies to a map split along W over a mesh (a
+``parallel.mesh.Sharded`` (1, C, H, W) whose shards split the last axis
+as ``even_bounds`` does), for ``parallel.spatial``: a conv computes each
+shard's output columns from the input columns they read, taken from as
+many neighbours as they span; GroupNorm sums each shard's moments across
+the shards, in shard order, before the group combine. Each shard computes
+with its entry's params (``mesh.entry_params``: ``Replicated`` leaves,
+placed once per device).
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from kfnet_tpu_torch.parallel.mesh import Sharded, entry_params, even_bounds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +163,45 @@ def _bias_round(y, params, compute_dtype):
   return (y.to(torch.float32) + params["b"][:, None, None]).to(compute_dtype)
 
 
+def _empty_columns(x: torch.Tensor, channels: int, rows: int, dtype):
+  return torch.empty((x.shape[0], channels, rows, 0), dtype=dtype,
+                     device=x.device)
+
+
+def _conv_sharded(x: Sharded, params, weights, out_ch, kernel, stride, cd,
+                  use_bias, eligible):
+  """A SAME conv of a W-sharded (1, C, H, W) map. Output shard i holds the
+  columns ``even_bounds`` gives it and reads the input columns those
+  need (zeros past the map's edges: SAME's padding there); H is padded as
+  SAME pads it. ``eligible``: the conv3x3_same kernel takes the conv (as
+  on the whole frame), on the block with one column more on each side,
+  cropped after its own SAME pad. Each shard takes its entry's params
+  (``entry_params``); ``weights`` gives the conv's kernel of them."""
+  h, w = x.shape[-2:]
+  t, b = same_pads(h, kernel, stride)
+  left, _ = same_pads(w, kernel, stride)
+  ob = even_bounds(-(-w // stride), len(x.shards))
+  out = []
+  for i, shard in enumerate(x.shards):
+    o0, o1 = ob[i], ob[i + 1]
+    if o0 == o1:
+      out.append(_empty_columns(shard, out_ch, -(-h // stride), cd))
+      continue
+    p_i = entry_params(params, i, shard.device)
+    w_i = weights(p_i)
+    if eligible:
+      from kfnet_tpu_torch.kernels import conv3x3
+      blk = x.take(i, o0 - 1, o1 + 1).to(torch.bfloat16)
+      y = conv3x3.conv3x3_same(blk[0].permute(1, 2, 0).contiguous(), w_i,
+                               p_i.get("b"), relu=False, out_dtype=cd)
+      out.append(y.permute(2, 0, 1)[None, :, :, 1:-1])
+      continue
+    blk = x.take(i, stride * o0 - left, stride * (o1 - 1) - left + kernel)
+    y = F.conv2d(F.pad(blk.to(cd), (0, 0, t, b)), w_i.to(cd), stride=stride)
+    out.append(_bias_round(y, p_i, cd) if use_bias else y)
+  return Sharded(out, -1, x.devices)
+
+
 def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
          compute_dtype="bfloat16", impl: str = "xla",
          weight_standardize: bool = False) -> Layer:
@@ -175,13 +225,20 @@ def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
       params["b"] = torch.zeros((out_ch,), device=device)
     return params, (-(-h // stride), -(-w // stride), out_ch)
 
-  def apply(params, x):
-    wgt = params["w"]
+  def weights(params):
     if weight_standardize:
-      wgt = standardize_weights(wgt, params["gain"])
-    if impl == "pallas_3x3" and _pallas_conv_eligible(
+      return standardize_weights(params["w"], params["gain"])
+    return params["w"]
+
+  def apply(params, x):
+    eligible = impl == "pallas_3x3" and _pallas_conv_eligible(
         x.shape[-2], x.shape[-1], x.shape[-3], out_ch, kernel, stride, 1,
-        "SAME"):
+        "SAME")
+    if isinstance(x, Sharded):
+      return _conv_sharded(x, params, weights, out_ch, kernel, stride, cd,
+                           use_bias, eligible)
+    wgt = weights(params)
+    if eligible:
       from kfnet_tpu_torch.kernels import conv3x3
       # the kernel casts x to bf16 in any config, as the JAX wrapper does
       y = conv3x3.conv3x3_same(frame_hwc(x.to(torch.bfloat16)), wgt,
@@ -240,11 +297,38 @@ def conv_transpose(out_ch: int, kernel: int = 4, stride: int = 2,
     return params, (h * stride, w * stride, out_ch)
 
   def apply(params, x):
+    if isinstance(x, Sharded):
+      return _sharded(params, x)
     y = F.conv_transpose2d(x.to(cd), params["w"].to(cd), stride=stride,
                            padding=pad, output_padding=out_pad)
     if use_bias:
       y = _bias_round(y, params, cd)
     return y
+
+  def _sharded(params, x):
+    # XLA pads the dilated input by a = kernel - 1 - pad: output column o
+    # reads the inputs j with o <= a + stride·j <= o + kernel - 1; an
+    # unpadded transposed conv of the block starting at j0 gives column o
+    # at o + pad - stride·j0
+    a = kernel - 1 - pad
+    ob = even_bounds(x.shape[-1] * stride, len(x.shards))
+    out = []
+    for i, shard in enumerate(x.shards):
+      o0, o1 = ob[i], ob[i + 1]
+      if o0 == o1:
+        out.append(_empty_columns(shard, out_ch, shard.shape[-2] * stride,
+                                  cd))
+        continue
+      j0 = -(-(o0 - a) // stride)
+      j1 = (o1 + kernel - 2 - a) // stride + 1
+      p_i = entry_params(params, i, shard.device)
+      y = F.conv_transpose2d(x.take(i, j0, j1).to(cd), p_i["w"].to(cd),
+                             stride=stride, padding=(pad, 0),
+                             output_padding=(out_pad, 0))
+      f0 = o0 + pad - stride * j0
+      y = y[..., f0:f0 + o1 - o0]
+      out.append(_bias_round(y, p_i, cd) if use_bias else y)
+    return Sharded(out, -1, x.devices)
 
   return Layer(init, apply)
 
@@ -271,15 +355,32 @@ def group_norm(groups: int = GN_GROUPS, eps: float = GN_EPS) -> Layer:
     return {"scale": torch.ones((c,), device=device),
             "bias": torch.zeros((c,), device=device)}, in_shape
 
+  def moments(x):
+    x32 = x.to(torch.float32)
+    return (torch.sum(x32, dim=(-2, -1)),                 # (B, C)
+            torch.sum(torch.square(x32), dim=(-2, -1)))   # (B, C)
+
   def apply(params, x):
+    if isinstance(x, Sharded):
+      # each shard's sums are its columns'; the map's are their total,
+      # added on the first entry's device in shard order
+      parts = [moments(t) for t in x.shards]
+      dev = x.devices[0]
+      s1, s2 = (sum_in_order([p[k] for p in parts], dev) for k in (0, 1))
+      return Sharded([normalize(entry_params(params, i, t.device), t,
+                                s1.to(t.device), s2.to(t.device),
+                                x.shape[-2:])
+                      for i, t in enumerate(x.shards)], x.axis, x.devices)
+    s1, s2 = moments(x)
+    return normalize(params, x, s1, s2, x.shape[-2:])
+
+  def normalize(params, x, s1, s2, hw):
     b, c = x.shape[0], x.shape[1]
     g = gn_group_count(c, groups)
     cg = c // g
     in_dtype = x.dtype
     x32 = x.to(torch.float32)
-    n = x.shape[-2] * x.shape[-1] * cg
-    s1 = torch.sum(x32, dim=(-2, -1))                    # (B, C)
-    s2 = torch.sum(torch.square(x32), dim=(-2, -1))      # (B, C)
+    n = hw[0] * hw[1] * cg
     mean_g = s1.reshape(b, g, cg).sum(-1) / n            # (B, g)
     var_g = torch.clamp_min(s2.reshape(b, g, cg).sum(-1) / n
                             - torch.square(mean_g), 0.0)
@@ -294,9 +395,21 @@ def group_norm(groups: int = GN_GROUPS, eps: float = GN_EPS) -> Layer:
   return Layer(init, apply)
 
 
+def sum_in_order(parts, device) -> torch.Tensor:
+  """Σ of ``parts`` (tensors on any devices) on ``device``, added in list
+  order: a fixed order, whichever device finishes first."""
+  total = parts[0].to(device)
+  for p in parts[1:]:
+    total = total + p.to(device)
+  return total
+
+
 def relu() -> Layer:
+  def apply(params, x):
+    return x.map(torch.relu) if isinstance(x, Sharded) else torch.relu(x)
+
   return Layer(init=lambda gen, in_shape, device: ({}, in_shape),
-               apply=lambda params, x: torch.relu(x))
+               apply=apply)
 
 
 def space_to_depth(factor: int = 2) -> Layer:

@@ -15,6 +15,11 @@ the port's params tree and NHWC batches of tensors. Where the JAX package
 takes a mean per sequence or per pair under ``vmap`` (the stage-3
 objectives), the port takes one per row of the batch too, and then their
 mean; stages 1 and 2 pool the whole batch into one masked mean, as there.
+Every loss function also carries its two parts (``_pooled``): the forward
+(the nets' outputs in stages 1 and 2, the per-row losses in stage 3) and
+the loss of its outputs, so that data parallelism can run the forward on
+each device's shard and take the loss of the whole batch's outputs, as
+the JAX package's GSPMD does.
 
 The window objective runs with the fused update kernel when the config
 takes it (the port's default): the kernel does the forward of every filter
@@ -46,6 +51,20 @@ def _differentiable(*net_configs):
           "train with conv_impl='xla'")
 
 
+def _pooled(forward, loss_of):
+  """``loss_fn(params, batch) = loss_of(forward(params, batch), batch)``,
+  with ``forward`` (a tuple of (B, ...) outputs, row i of each from row i
+  of the batch alone) and ``loss_of`` kept on it, so that a batch split
+  over devices takes each part's forward and the loss of the outputs
+  gathered (``train.trainer.make_dp_train_step``)."""
+
+  def loss_fn(params, batch):
+    return loss_of(forward(params, batch), batch)
+
+  loss_fn.forward, loss_fn.loss_of = forward, loss_of
+  return loss_fn
+
+
 def _training_dynamics(config: kfnet.KFNetConfig) -> kfnet.KFNetConfig:
   """Joint fine-tuning ALWAYS trains the raw paper filter dynamics (χ²
   p=0.05 gate, no W temperature, no adaptation): the calibrated serving
@@ -66,8 +85,11 @@ def scoordnet_objective(config: scoordnet.SCoordNetConfig):
   """batch: image (B,H,W,3), coords (B,h,w,3), valid (B,h,w)."""
   _differentiable(config)
 
-  def loss_fn(params, batch):
-    coords, var = scoordnet.apply(params, config, batch["image"])
+  def forward(params, batch):
+    return scoordnet.apply(params, config, batch["image"])
+
+  def loss_of(outputs, batch):
+    coords, var = outputs
     valid = batch["valid"]
     loss = nll.gaussian_nll(coords, batch["coords"], var, valid)
     metrics = {
@@ -77,7 +99,7 @@ def scoordnet_objective(config: scoordnet.SCoordNetConfig):
     }
     return loss, metrics
 
-  return loss_fn
+  return _pooled(forward, loss_of)
 
 
 def oflownet_objective(config: oflownet.OFlowNetConfig,
@@ -91,9 +113,12 @@ def oflownet_objective(config: oflownet.OFlowNetConfig,
   """
   _differentiable(config)
 
-  def loss_fn(params, batch):
-    flow, W = oflownet.apply(params, config, batch["image_prev"],
-                             batch["image"])
+  def forward(params, batch):
+    return oflownet.apply(params, config, batch["image_prev"],
+                          batch["image"])
+
+  def loss_of(outputs, batch):
+    flow, W = outputs
     joint = torch.cat([batch["coords_prev"],
                        batch["valid_prev"][..., None].to(torch.float32)], -1)
     warped, in_bounds = warp_lib.warp_by_flow(joint, flow)  # map by map
@@ -117,7 +142,7 @@ def oflownet_objective(config: oflownet.OFlowNetConfig,
     }
     return loss, metrics
 
-  return loss_fn
+  return _pooled(forward, loss_of)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +172,7 @@ def kfnet_window_objective(config: kfnet.KFNetConfig,
   _differentiable(config.scoordnet, config.oflownet)
   config = _training_dynamics(config)
 
-  def loss_fn(params, batch):
+  def forward(params, batch):
     images, coords_gt, valid = batch["images"], batch["coords"], batch["valid"]
     T = images.shape[1]
 
@@ -173,16 +198,17 @@ def kfnet_window_objective(config: kfnet.KFNetConfig,
       err.append(out[5])
     # per sequence: means over the window; l0 / T divides by the window
     # length (the JAX package's images.shape[0] inside its vmap)
-    l_post = torch.mean(torch.stack(l_post), dim=0)
-    l_meas = torch.mean(torch.stack(l_meas), dim=0) + l0 / T
-    err = torch.mean(torch.stack(err), dim=0)
-    loss = (weights.posterior * torch.mean(l_post) +
-            weights.measurement * torch.mean(l_meas))
-    return loss, {"loss": loss, "posterior_nll": torch.mean(l_post),
-                  "measurement_nll": torch.mean(l_meas),
-                  "coord_err_m": torch.mean(err)}
+    return (torch.mean(torch.stack(l_post), dim=0),
+            torch.mean(torch.stack(l_meas), dim=0) + l0 / T,
+            torch.mean(torch.stack(err), dim=0))
 
-  return loss_fn
+  def loss_of(rows, batch):
+    l_post, l_meas, err = map(torch.mean, rows)
+    loss = weights.posterior * l_post + weights.measurement * l_meas
+    return loss, {"loss": loss, "posterior_nll": l_post,
+                  "measurement_nll": l_meas, "coord_err_m": err}
+
+  return _pooled(forward, loss_of)
 
 
 def kfnet_objective(config: kfnet.KFNetConfig,
@@ -203,7 +229,7 @@ def kfnet_objective(config: kfnet.KFNetConfig,
   _differentiable(config.scoordnet, config.oflownet)
   config = _training_dynamics(config)
 
-  def loss_fn(params, batch):
+  def forward(params, batch):
     coords_gt, valid = batch["coords"], batch["valid"]
     x0, P0, feat0 = kfnet.first_step(params, config, batch["image_prev"])
     x1, P1, _, aux = kfnet.filter_step(params, config, x0, P0, feat0,
@@ -217,7 +243,10 @@ def kfnet_objective(config: kfnet.KFNetConfig,
     err = _per_row(nll.l2_coord_error, x1, coords_gt, valid)
     cons = torch.mean(aux["consistent"].to(torch.float32),
                       dim=tuple(range(1, aux["consistent"].dim())))
-    l_post, l_meas, l_prior = map(torch.mean, (l_post, l_meas, l_prior))
+    return l_post, l_meas, l_prior, err, cons
+
+  def loss_of(rows, batch):
+    l_post, l_meas, l_prior, err, cons = map(torch.mean, rows)
     loss = (weights.posterior * l_post + weights.measurement * l_meas +
             weights.prior * l_prior)
     metrics = {
@@ -225,9 +254,9 @@ def kfnet_objective(config: kfnet.KFNetConfig,
         "posterior_nll": l_post,
         "measurement_nll": l_meas,
         "prior_nll": l_prior,
-        "coord_err_m": torch.mean(err),
-        "consistent_frac": torch.mean(cons),
+        "coord_err_m": err,
+        "consistent_frac": cons,
     }
     return loss, metrics
 
-  return loss_fn
+  return _pooled(forward, loss_of)

@@ -8,7 +8,9 @@
 
 Frames decode on the host (the port's PNG codec), labels come from depth
 and the ground-truth pose, and the batches go to the device, where
-``trainer.fit`` trains on one device. Writes
+``trainer.fit`` trains on one device, or data-parallel over the visible
+GPUs that divide the batch (``--device cuda``; ``trainer.default_mesh``,
+as in each train script). Writes
 ``<model_folder>/scoordnet_<scene>/``: ``meta.json`` (the scene's
 coordinate normalisation), ``metrics.jsonl``, a checkpoint a step
 directory, and the release ``export/`` (``params.npz`` in the JAX

@@ -34,6 +34,7 @@ import torch
 import kfnet_tpu_torch
 from kfnet_tpu_torch.filter import sequence
 from kfnet_tpu_torch.nn import layers as L
+from kfnet_tpu_torch.parallel import mesh as mesh_lib
 from kfnet_tpu_torch.utils import checkpoint as ckpt_lib
 from kfnet_tpu_torch.utils import logging as log_lib
 
@@ -141,6 +142,13 @@ def create_state(params, optimizer: Adam) -> TrainState:
   return TrainState(step=0, params=params, opt_state=optimizer.init(params))
 
 
+def _grads(live) -> list:
+  """The grads of a tree of leaves that require grad, in leaf order
+  (zeros for a leaf the loss does not reach)."""
+  return [torch.zeros_like(p) if p.grad is None else p.grad
+          for p in L.tree_leaves(live)]
+
+
 def value_and_grad(loss_fn: Callable, params, batch):
   """(loss, metrics, grads) of ``loss_fn(params, batch)``: the loss and
   metrics detached, the grads a list in ``layers.tree_leaves(params)``
@@ -150,8 +158,7 @@ def value_and_grad(loss_fn: Callable, params, batch):
   with torch.enable_grad():
     loss, metrics = loss_fn(live, batch)
     loss.backward()
-  grads = [torch.zeros_like(p) if p.grad is None else p.grad
-           for p in L.tree_leaves(live)]
+  grads = _grads(live)
   return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
           grads)
 
@@ -178,6 +185,62 @@ def _one_step(loss_fn: Callable, optimizer: Adam):
   return one_step
 
 
+def make_dp_train_step(loss_fn: Callable, optimizer: Adam, mesh,
+                       replicas: list) -> Callable:
+  """The data-parallel step over ``mesh`` (the JAX package's jitted step on
+  a sharded batch, whose gradient psum GSPMD inserts): (state, entry
+  batches) -> (state, metrics), where entry i's batch is its shard of the
+  global batch, on its device, and ``replicas[i]`` its copy of the params
+  (``replicas[0]`` is ``state.params``).
+
+  ``loss_fn`` is one of ``train.objectives``' (``objectives._pooled``):
+  each entry runs its forward on its shard, the loss is taken of the
+  outputs gathered on the first entry's device (the whole batch's, however
+  it pools it: one masked mean in stages 1 and 2, a mean of per-row means
+  in stage 3), and one backward runs through every entry's graph; each
+  replica's gradient is its shard's share. The grads are added on the
+  first entry's device in entry order (the answer does not depend on
+  which device finishes first), one Adam update runs there, and the other
+  replicas copy the new params. The metrics are the batch's; ``grad_norm``
+  is that of the reduced gradient. GroupNorm's moments are each sample's
+  own, so nothing else is synced."""
+  if not (hasattr(loss_fn, "forward") and hasattr(loss_fn, "loss_of")):
+    raise ValueError(
+        "a data-parallel step needs a loss with its forward and loss_of "
+        "(train.objectives' losses have them): a wrapped loss hides how "
+        "it pools the batch")
+  dev = mesh.devices[0]
+
+  def dp_step(state: TrainState, batches: list):
+    lives = [L.tree_map(lambda p: p.detach().requires_grad_(True), rep)
+             for rep in replicas]
+    with torch.enable_grad():
+      outs = [loss_fn.forward(live, b) for live, b in zip(lives, batches)]
+      gathered = tuple(torch.cat([o[k].to(dev) for o in outs])
+                       for k in range(len(outs[0])))
+      whole = {k: torch.cat([b[k].to(dev) for b in batches])
+               for k in batches[0]}
+      loss, metrics = loss_fn.loss_of(gathered, whole)
+      loss.backward()
+    parts = [_grads(live) for live in lives]
+    grads = [t.to(dev, non_blocking=True) for t in parts[0]]
+    for g in parts[1:]:
+      torch._foreach_add_(grads, [t.to(dev, non_blocking=True) for t in g])
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = global_norm(grads)
+    optimizer.update(grads, state.opt_state, state.params)
+    master = L.tree_leaves(state.params)
+    with torch.no_grad():
+      for rep in replicas[1:]:
+        leaves = L.tree_leaves(rep)
+        torch._foreach_copy_(leaves, [t.to(leaves[0].device) for t in
+                                      master])
+    state.step += 1
+    return state, metrics
+
+  return dp_step
+
+
 def make_train_step(loss_fn: Callable, optimizer: Adam) -> Callable:
   """(state, batch) -> (state, metrics); the state is updated in place."""
   return _one_step(loss_fn, optimizer)
@@ -192,7 +255,12 @@ def make_multi_train_step(loss_fn: Callable, optimizer: Adam,
   positive value gives the same steps; it must be positive, as there."""
   if unroll < 1:
     raise ValueError(f"unroll must be a positive integer, not {unroll!r}")
-  one_step = _one_step(loss_fn, optimizer)
+  return _k_steps(_one_step(loss_fn, optimizer))
+
+
+def _k_steps(one_step: Callable) -> Callable:
+  """``one_step`` over each row of arrays stacked along a leading (K,)
+  axis; the metrics of the last step."""
 
   def multi_step(state: TrainState, batches):
     k = next(iter(batches.values())).shape[0]
@@ -217,27 +285,8 @@ class TrainLoopConfig:
   steps_per_dispatch: int = 1
 
 
-MULTI_GPU = "ROADMAP.md, queue 1 item 5: multi-GPU"
-
-
-def default_mesh(batch_size: int, device="cuda"):
-  """The JAX package's data mesh, over as many devices as divide the batch.
-  None where one device would take it: the CPU, a device given with its
-  index (``cuda:0``), or one visible GPU. Where ``cuda`` would split the
-  batch over several GPUs it raises, as ``fit(mesh=...)`` does, since
-  data parallelism across GPUs is not ported yet."""
-  device = torch.device(device)
-  if device.type != "cuda" or device.index is not None:
-    return None
-  n = torch.cuda.device_count()
-  while n > 1 and batch_size % n:
-    n -= 1
-  if n > 1:
-    raise NotImplementedError(
-        f"a batch of {batch_size} would be split over {n} GPUs: data "
-        f"parallelism across GPUs is not ported yet ({MULTI_GPU}); train "
-        "on one with --device cuda:0")
-  return None
+# the JAX package's data mesh, over the visible GPUs that divide a batch
+default_mesh = mesh_lib.default_mesh
 
 
 def clone_params(params, device):
@@ -280,11 +329,16 @@ def fit(loss_fn: Callable,
   """Run the training loop on ``device`` (``cuda`` unless given); resumes
   from the latest checkpoint if ``loop_cfg.checkpoint_dir`` holds one.
   Batches (dicts of numpy arrays or tensors) are moved to the device.
-  Returns the final TrainState; ``init_params`` are left as they were."""
+  Returns the final TrainState; ``init_params`` are left as they were.
+
+  With a ``mesh`` (``parallel.mesh.default_mesh``) each step's batch is
+  split over its entries along the batch axis (the stacked (K, B, ...)
+  batches of ``steps_per_dispatch`` > 1 a step at a time, so along B) and
+  the step is the data-parallel one (``make_dp_train_step``): one params
+  replica per entry, the state on the first entry's device, where the
+  checkpoints are taken from; a resumed run replicates again."""
   if mesh is not None:
-    raise NotImplementedError(
-        "fit(mesh=...): data parallelism across GPUs is not ported yet "
-        f"({MULTI_GPU})")
+    device = mesh.devices[0]
   device = kfnet_tpu_torch.resolve_device(device)
   optimizer = make_optimizer(optimizer_cfg)
   state = create_state(clone_params(init_params, device), optimizer)
@@ -300,11 +354,24 @@ def fit(loss_fn: Callable,
       logger.log_text(f"resumed at step {state.step}")
 
   K = max(1, loop_cfg.steps_per_dispatch)
+  if mesh is None:
+    train_step = make_train_step(loss_fn, optimizer)
+    place = to_device
+  else:
+    replicas = [state.params] + (mesh_lib.replicate_tree(
+        mesh_lib.Mesh(mesh.devices[1:]), state.params) if mesh.size > 1
+                                 else [])
+    dp_step = make_dp_train_step(loss_fn, optimizer, mesh, replicas)
+
+    def train_step(state, batch):
+      sharded = mesh_lib.shard_batch(mesh, batch, mesh.axis_name)
+      return dp_step(state, [mesh_lib.entry_batch(sharded, i)
+                             for i in range(mesh.size)])
+
+    place = lambda batch, device: batch  # the split places each part
   if K > 1:
     batches = _grouped(batches, K)
-    train_step = make_multi_train_step(loss_fn, optimizer)
-  else:
-    train_step = make_train_step(loss_fn, optimizer)
+    train_step = _k_steps(train_step)
   t0 = time.time()
   start_step = step = state.step
   for batch in batches:
@@ -318,7 +385,7 @@ def fit(loss_fn: Callable,
         batch = {k: v[:remaining] for k, v in batch.items()}
         k_batch = remaining
     prev_step = step
-    state, metrics = train_step(state, to_device(batch, device))
+    state, metrics = train_step(state, place(batch, device))
     step += k_batch
     # window-crossing tests (not `step % every < K`, which can double-fire
     # around a boundary when a short tail group makes k_batch < K)

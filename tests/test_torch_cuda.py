@@ -42,7 +42,12 @@ poses (the CPU's candidate nearest the truth within 1e-4 of it): every
 candidate finite, the nearest within 1e-3 of the truth, as
 tests/test_torch_p3p.py holds the CPU, and within 1e-3 of the CPU's (the
 card rounds otherwise, and float32 P3P amplifies it: 1.7e-4 seen); params
-on the CPU moved to the card by the sequence entry points.
+on the CPU moved to the card by the sequence entry points. Over a mesh of
+one card named four (or two) times: the fleet's streams against the
+one-device batch at the card-against-CPU tolerance above, the mesh
+relocaliser's poses against the one-device fleet's at atol 1e-3, and
+fit(mesh=) against fit on the card at tests/test_sharding.py's loss rtol
+1e-5 and the gradients at tests/test_torch_train.py's tolerance.
 """
 
 import unittest.mock as mock
@@ -1049,3 +1054,95 @@ def test_train_scripts_on_card_at_tiny_width(cuda, tmp_path):
     assert s.step == 2
     assert all(p.device.type == "cuda" and torch.isfinite(p).all()
                for p in L.tree_leaves(s.params))
+
+
+def tiny_cfg():
+  return kfnet.KFNetConfig(
+      scoordnet=scoordnet.SCoordNetConfig(
+          channels=(8, 8, 16, 16, 16, 16), strides=(1, 2, 1, 2, 1, 2),
+          head_channels=16, compute_dtype="float32"),
+      oflownet=oflownet.OFlowNetConfig(
+          encoder_channels=(8, 8, 16), encoder_strides=(2, 2, 2),
+          search_radius=2, unet_channels=(8, 8, 16),
+          compute_dtype="float32"))
+
+
+def test_fleet_over_a_repeated_card_mesh(cuda):
+  """run_filter_fleet and FleetRelocalizer over a 4-entry mesh of one card
+  (cuda:0 four times): each entry its own graph and one fused launch a
+  step; the fleet's streams equal to the one-device batch (rtol 1e-4,
+  atol 2e-5, as the card against the CPU above), the relocaliser's poses
+  to the one-device fleet's (atol 1e-3) with one host wait a tick."""
+  from kfnet_tpu_torch.eval.online import FleetRelocalizer
+  from kfnet_tpu_torch.filter import sequence
+  from kfnet_tpu_torch.parallel import mesh as tmesh
+  cfg = tiny_cfg()
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  mesh = tmesh.Mesh([torch.device("cuda", 0)] * 4)
+  frames = np.random.default_rng(1).integers(0, 256, (5, 4, 48, 64, 3),
+                                             dtype=np.uint8)
+  tff.fused_filter_step.launches = 0
+  xs, Ps = sequence.run_filter_fleet(params, cfg, frames, mesh)
+  torch.cuda.synchronize()
+  assert tff.fused_filter_step.launches == 4 * 4
+  xs0, Ps0 = sequence.run_filter_batched(params, cfg, frames)
+  for got, want in ((xs, xs0), (Ps, Ps0)):
+    assert all(s.device.type == "cuda" for s in got.shards)
+    np.testing.assert_allclose(got.full().cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=2e-5)
+  K = np.asarray([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]], np.float32)
+  one = FleetRelocalizer(params, cfg, K, batch_size=4, device=cuda)
+  split = FleetRelocalizer(params, cfg, K, batch_size=4, mesh=mesh)
+  for t in range(5):
+    p1, _ = one.process(frames[t])
+    p4, _ = split.process(frames[t])
+    np.testing.assert_allclose(p4, p1, atol=1e-3)
+  steps = {id(e._step) for e in split._entries}
+  assert len(steps) == 4 and None not in {e._step for e in split._entries}
+
+
+def test_fit_on_a_repeated_card_mesh(cuda):
+  """fit(mesh=) over two entries of one card against fit on the card, one
+  step on a batch whose rows hold different valid counts (the pooled
+  loss): the loss at rtol 1e-5 (tests/test_sharding.py's) and the gradient
+  given to the optimizer at tests/test_torch_train.py's rtol 2e-3, atol
+  1e-5 plus 5e-4 of the leaf's largest |value|; the params stay on the
+  card."""
+  from kfnet_tpu_torch.parallel import mesh as tmesh
+  from kfnet_tpu_torch.train import objectives, trainer
+  from kfnet_tpu_torch.utils import logging as log_lib
+  cfg = tiny_cfg().scoordnet
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  params = scoordnet.init(gen, cfg, (48, 64, 3), cuda)
+  rng = np.random.default_rng(0)
+  batch = {"image": rng.uniform(0, 1, (4, 48, 64, 3)).astype(np.float32),
+           "coords": rng.normal(size=(4, 6, 8, 3)).astype(np.float32),
+           "valid": rng.uniform(size=(4, 6, 8)) > np.linspace(0, 0.6, 4)[
+               :, None, None]}
+  loss_fn = objectives.scoordnet_objective(cfg)
+  loop = trainer.TrainLoopConfig(max_steps=1, log_every=1)
+  update = trainer.Adam.update
+  runs = []
+  for kw in ({"device": cuda},
+             {"mesh": tmesh.Mesh([torch.device("cuda", 0)] * 2)}):
+    fed, rows = [], []
+
+    class Rec(log_lib.MetricLogger):
+      def log_metrics(self, step, metrics):
+        rows.append(metrics)
+
+    def recording(self, grads, state, p, fed=fed):
+      fed.append([g.clone() for g in grads])
+      return update(self, grads, state, p)
+
+    with mock.patch.object(trainer.Adam, "update", recording):
+      state = trainer.fit(loss_fn, params, iter([batch]), loop_cfg=loop,
+                          logger=Rec(), **kw)
+    assert all(p.device.type == "cuda" for p in L.tree_leaves(state.params))
+    runs.append((rows[0]["loss"], fed[0]))
+  (l0, g0), (l1, g1) = runs
+  np.testing.assert_allclose(l1, l0, rtol=1e-5)
+  for a, b in zip(g0, g1):
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    np.testing.assert_allclose(b, a, rtol=2e-3,
+                               atol=1e-5 + 5e-4 * np.abs(a).max())

@@ -1,7 +1,7 @@
 """The port's FleetRelocalizer and OnlineRelocalizer(smoother=...) on the
 CPU, at the tiny float32 config of tests/tiny_configs.py: the cases of
-tests/test_online.py without the mesh, and the fleet against the JAX
-package's.
+tests/test_online.py without the mesh (the mesh's are in
+tests/test_torch_mesh.py), and the fleet against the JAX package's.
 
 Tolerances: a fleet slot against a lone stream rtol 1e-5 / atol 2e-5 (as
 tests/test_online.py: the batch sums its convs in another order); the
@@ -31,6 +31,7 @@ from kfnet_tpu_torch.kernels import conv3x3 as tc3
 from kfnet_tpu_torch.models import kfnet as tkfnet
 from kfnet_tpu_torch.models import oflownet as toflow
 from kfnet_tpu_torch.models import scoordnet as tscoord
+from kfnet_tpu_torch.parallel import mesh as tmesh
 from kfnet_tpu_torch.pose import ransac as transac
 from kfnet_tpu_torch.pose import smoothing
 from tests import tiny_configs as tc
@@ -252,13 +253,18 @@ def test_online_smoother_and_reset(setup):
 
 
 def test_mesh_and_bad_depth_raise(setup):
+  """A mesh that does not divide the slots, a mesh beside a device and an
+  axis the mesh does not name raise, as a bad pipeline depth does (the
+  mesh itself is served: tests/test_torch_mesh.py)."""
   _, _, cfg, params = setup
-  with pytest.raises(NotImplementedError, match="not ported"):
-    FleetRelocalizer(params, cfg, K, batch_size=2, mesh=object(),
-                     device="cpu")
-  with pytest.raises(NotImplementedError, match="not ported"):
-    FleetRelocalizer(params, cfg, K, batch_size=2, axis_name="data",
-                     device="cpu")
+  mesh = tmesh.Mesh(["cpu"] * 3)
+  with pytest.raises(ValueError, match="divisible"):
+    FleetRelocalizer(params, cfg, K, batch_size=2, mesh=mesh)
+  with pytest.raises(ValueError, match="not both"):
+    FleetRelocalizer(params, cfg, K, batch_size=3, mesh=mesh, device="cpu")
+  with pytest.raises(ValueError, match="axis"):
+    FleetRelocalizer(params, cfg, K, batch_size=3, mesh=mesh,
+                     axis_name="model")
   with pytest.raises(ValueError, match="pipeline_depth"):
     FleetRelocalizer(params, cfg, K, batch_size=2, pipeline_depth=-1,
                      device="cpu")

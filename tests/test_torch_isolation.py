@@ -136,6 +136,9 @@ def test_package_import_leaves_jax_out():
           "import kfnet_tpu_torch.tools.soak, kfnet_tpu_torch.tools.protocol;"
           "import kfnet_tpu_torch.tools.export_release;"
           "import kfnet_tpu_torch.utils.tf1_import;"
+          "import kfnet_tpu_torch.parallel;"
+          "import kfnet_tpu_torch.parallel.mesh;"
+          "import kfnet_tpu_torch.parallel.spatial;"
           f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules];"
           "print(bad); sys.exit(1 if bad else 0)")
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -544,9 +544,22 @@ def test_fit_leaves_the_callers_params_alone(seq):
                  zip(L.tree_leaves(params), L.tree_leaves(state.params)))
 
 
-def test_fit_on_a_mesh_is_not_ported():
-  with pytest.raises(NotImplementedError, match="mesh"):
-    ttrainer.fit(sc_loss(), {}, iter([]), mesh=object(), device="cpu")
+def test_fit_on_a_mesh_is_not_ported(seq):
+  """fit(mesh=) is ported now (its cases: tests/test_torch_mesh.py): on a
+  2-entry CPU mesh it takes its steps, its state on the first entry; a
+  batch the mesh does not divide raises."""
+  from kfnet_tpu_torch.parallel import mesh as tmesh
+  mesh = tmesh.Mesh(["cpu"] * 2)
+  state = ttrainer.fit(sc_loss(), port_params("scoordnet"),
+                       iter(sc_batches(seq, 2)),
+                       loop_cfg=ttrainer.TrainLoopConfig(max_steps=2),
+                       mesh=mesh, logger=Recorder())
+  assert state.step == state.opt_state.count == 2
+  assert all(p.device.type == "cpu" for p in L.tree_leaves(state.params))
+  with pytest.raises(ValueError, match="divisible"):
+    ttrainer.fit(sc_loss(), port_params("scoordnet"),
+                 iter(sc_batches(seq, 1)), mesh=tmesh.Mesh(["cpu"] * 3),
+                 logger=Recorder())
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -8,8 +8,8 @@ JAX's make_scene_loader at rtol 1e-6 (float64 sums of float32 labels made
 by two frameworks); the first batch's loss under the JAX-initialised
 weights carried across by ``convert`` at the goldens' rtol 5e-4 / atol
 5e-5, the loss tolerance the port's objective tests hold against JAX
-(tests/test_torch_train.py); a request to split the batch over several
-GPUs raises.
+(tests/test_torch_train.py); a batch split over several GPUs trains
+(over a CPU mesh here).
 """
 
 import dataclasses
@@ -228,20 +228,39 @@ def test_pairs_objective_runs_the_composition(data_root, tmp_path):
   assert state.step == 1
 
 
-def test_a_batch_split_over_several_gpus_raises(data_root, tmp_path,
-                                                monkeypatch):
+def test_a_batch_split_over_several_gpus_raises(tmp_path, monkeypatch):
   """The JAX package's multi-scene data-parallel case
-  (tests/test_train_cli.py:49): batch 8 over 8 devices. Here it raises by
-  name until multi-GPU is ported; a device given with its index, the CPU
-  and one GPU train on one device."""
+  (tests/test_train_cli.py:49): batch 8 over 8 devices. Data parallelism
+  is ported now, so the split trains rather than raising: with eight
+  GPUs visible, each script asks ``trainer.default_mesh`` for a mesh of
+  eight (given here over the CPU); a device given with its index, the
+  CPU and one GPU train on one device."""
+  from kfnet_tpu_torch.parallel import mesh as tmesh
   monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-  argv = ["--input_folder", data_root, "--scenes", "chess",
-          "--model_folder", str(tmp_path), "--net_scale", "tiny",
-          "--batch_size", "8", "--max_steps", "2", "--device", "cuda"]
-  for main in (tts.main, tto.main, ttk.main):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-GPU"):
-      main(argv if main is tto.main else argv[:2] + argv[4:])
+  assert ttrainer.default_mesh(8, "cuda").size == 8
   assert ttrainer.default_mesh(8, "cuda:0") is None
   assert ttrainer.default_mesh(8, "cpu") is None
   monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
   assert ttrainer.default_mesh(8, "cuda") is None
+  root = str(tmp_path / "data")
+  fixture.write_seven_scenes_fixture(root, train_frames=10, test_frames=2,
+                                     height=48, width=64, device="cpu")
+  meshes = []
+
+  def eight_entries(batch_size, device):
+    meshes.append((batch_size, str(device)))
+    return tmesh.Mesh(["cpu"] * 8)
+
+  monkeypatch.setattr(ttrainer, "default_mesh", eight_entries)
+  models = str(tmp_path / "models")
+  argv = ["--input_folder", root, "--scenes", "chess",
+          "--model_folder", models, "--net_scale", "tiny",
+          "--batch_size", "8", "--max_steps", "2", "--device", "cpu"]
+  states = [tto.main(argv), tts.main(argv[:2] + ["--scene", "chess"]
+                                     + argv[4:])]
+  states.append(ttk.main(argv[:2] + ["--scene", "chess"] + argv[4:] + [
+      "--window_size", "3", "--scoordnet_ckpt", f"{models}/scoordnet_chess",
+      "--oflownet_ckpt", f"{models}/oflownet_7scenes"]))
+  assert meshes == [(8, "cpu")] * 3
+  for s in states:
+    assert s.step == s.opt_state.count == 2
