@@ -287,6 +287,47 @@ Phases, one line each, with their seconds:
      difference recorded (the kernels' bf16 operands); ms a fleet tick, a
      stage-1 train step (bf16) and a spatial frame over the mesh, and on
      one device beside them where the entries are distinct GPUs.
+  15. study: the study tools of kfnet_tpu_torch/tools at full width on
+     the card, in a temporary work dir. protocol.prepare_stages at 640x480
+     (the flagship nets, full_size=True) on sceneA and heldout
+     (STUDY_TRAIN train and STUDY_TEST test frames, STUDY_STEPS steps a
+     stage), then evaluate_scenes: every row finite, the optimizer steps
+     (4 STUDY_STEPS: stage 1 twice, stage 2, stage 3 on sceneA; stage 3
+     trains 2-frame pairs through the composition, which returns the
+     prior its NLL needs), the fused update's launches (STUDY_TEST - 1 a
+     filtered run, evaluate_sequence's warm-up and EVAL_TIMING_REPS timed
+     runs, both scenes; none while training); a strict re-run from the
+     cache: no optimizer step, the params and sceneA's filtered maps
+     bit-equal. calibrate.sweep_scene on sceneA's cache over χ² {2.37,
+     7.81} x w {1, 8}, rows finite; filter_from_series (the warp ∘ Kalman
+     composition over the precomputed series) at the config's χ² and
+     w_scale against run_filter (the fused kernel, STUDY_TEST - 1
+     launches) on the same frames: in the float32 form of the config
+     (same weights) x and P within TOL_PATH, in bf16 recorded; run_filter
+     with the fused kernel against the composition, timed in alternating
+     turns (STUDY_TURNS each). diagnose.main on heldout with --modes
+     measurement_only,cf_derigid,filtered_serving: every field finite.
+     conv_study.main at 640x480 over STUDY_CONV_T frames, --norms group
+     --impls xla,pallas_3x3,pallas_fused: each cell's launches (its
+     filter_fps: 1 + 3 x 3 run_filter calls, each kfnet.kernel_shapes'
+     conv calls of a first frame and STUDY_CONV_T - 1 later ones, the
+     fused update STUDY_CONV_T - 1 times), every conv kernel call of one
+     frame pair of the pallas_3x3 cell (SCoordNet's eligible convs on
+     conv3x3_same) and of the pallas_fused cell (its conv3x3_gn_chain
+     trunk) against its plain version (check_calls, phase 4's tolerances)
+     and the calls' shapes against kernel_shapes', fps and MFU. norm_study over
+     the group cache and a norm="none" cache (prepare_cache's route: the
+     group cache's stage 2 copied, then STUDY_STEPS steps of stages 1 and
+     3), fps, MFU and the paired report finite. profile_filter over
+     STUDY_PROFILE_T frames: the fused kernel among the traced kernels
+     (STUDY_PROFILE_T - 1 a run), the idle fraction. profile_tick at
+     B = 4: compute_ms, roundtrip_floor_ms, tick_ms, the residual, the
+     fused update's launches (PT_FLEET_TICKS filter ticks a fleet, two
+     fleets). The host tools: cache_manifest builds and verifies the work
+     dir, and a flipped byte in a copy is reported; generate_labels on a
+     640x480 7-Scenes fixture (the port's fixture writer); eval.main on the
+     committed flagship over its test split with --dump_dir, and
+     visualize on that dump (3 PNGs a frame at 480x640);
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
 nothing under artifacts/; writes only the kernel build directory, and the
 training checkpoints of phase 9 and the fixtures, train outputs and dumps
@@ -312,7 +353,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # rtol), their check against the plain version and the H100 SXM's memory
 # rate live beside the conv kernels' timing tool, which checks the same
 from kfnet_tpu_torch.tools.conv_tiles import (  # noqa: E402
-    BF16_STEP, HBM_BYTES_PER_S, TOL_F32_SUM, TOL_S2, call_errors)
+    BF16_STEP, HBM_BYTES_PER_S, TOL_F32_SUM, TOL_S2, arguments, call_errors)
 
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TOL_X, TOL_P = 2e-5, 2e-5   # the kernel against its plain version
@@ -402,6 +443,16 @@ MESH_WIN_T, MESH_WIN_B, MESH_WIN_STEPS = 3, 4, 2
 DP_LOSS_RTOL, DP_PARAMS_ATOL = 1e-5, 1e-5
 DP_NEAR_ZERO = 1e-3         # of a leaf's largest |grad|: within noise of 0
 CV_ATOL = 1e-6              # the W-sharded cost volume against cost_volume
+# phase "study": the protocol's frames and steps a stage, the conv study's
+# and the profiler's frames, the timed turns of the fused kernel against
+# the composition, the fixture's frames, and profile_tick's filter ticks a
+# fleet (the second process() call, _median_ms's warm-up and 5 x 3 calls,
+# the chain's warm-up of 2 and 5 x 16 ticks)
+STUDY_TRAIN, STUDY_TEST, STUDY_STEPS = 8, 16, 2
+STUDY_CONV_T, STUDY_PROFILE_T, STUDY_TURNS = 8, 8, 5
+STUDY_FIX_TRAIN, STUDY_FIX_TEST = 4, 4
+FILTER_FPS_RUNS = 1 + 3 * 3            # eval/benchmark.filter_fps's calls
+PT_FLEET_TICKS = 1 + (1 + 5 * 3) + (2 + 5 * 16)
 
 
 def say(phase, t0, **fields):
@@ -726,6 +777,12 @@ def check_calls(c3, calls):
       worst = {k: max(v, worst.get(k, 0.0)) for k, v in errs.items()}
     out[name] = dict(calls=len(log), **worst)
   return out
+
+
+def call_shape(name, args, kwargs):
+  """The (h, w, cin, cout) of a recorded conv kernel call."""
+  a = arguments(name, args, kwargs)
+  return (*a["x"].shape, a["w"].shape[0])
 
 
 def deviation(got, want, relative):
@@ -2481,6 +2538,376 @@ def soak_phase(dev, wrappers):
                                 "conv3x3_same": 0, "conv3x3_gn_chain": 0}}
 
 
+def finite_fields(tree):
+  """True where every number in ``tree`` (dicts, lists; bools and strings
+  skipped) is finite and no value is None."""
+  if isinstance(tree, dict):
+    return all(finite_fields(v) for v in tree.values())
+  if isinstance(tree, (list, tuple)):
+    return all(finite_fields(v) for v in tree)
+  if isinstance(tree, (bool, str)):
+    return True
+  if tree is None:
+    return False
+  import math
+  return math.isfinite(float(tree))
+
+
+def study_phase(dev, wrappers):
+  """Phase "study" (module docstring, phase 15): the study tools at full
+  width. Returns (the phase's fields, the launches of its paths by name);
+  the caller asserts."""
+  import shutil
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch import configs, pretrained
+  from kfnet_tpu_torch.data import fixture, image_io
+  from kfnet_tpu_torch.eval import main as eval_main
+  from kfnet_tpu_torch.filter import sequence
+  from kfnet_tpu_torch.kernels import conv3x3 as c3
+  from kfnet_tpu_torch.models import kfnet
+  from kfnet_tpu_torch.nn import layers as L
+  from kfnet_tpu_torch.tools import (cache_manifest, calibrate, conv_study,
+                                     diagnose, generate_labels, norm_study,
+                                     prepare_cache, profile_filter,
+                                     profile_tick, protocol, visualize)
+  from kfnet_tpu_torch.train import trainer
+
+  out, launches = {}, {}
+  scenes = tuple(s for s in protocol.DEFAULT_SCENES
+                 if s.name in ("sceneA", "heldout"))
+  stages = dict(H=IMG[0], W=IMG[1], train_frames=STUDY_TRAIN,
+                test_frames=STUDY_TEST, sc_steps=STUDY_STEPS,
+                of_steps=STUDY_STEPS, joint_steps=STUDY_STEPS, lr=TRAIN_LR,
+                full_size=True, log=None, device=dev)
+  updates = []
+  update_fn = trainer.Adam.update
+
+  def update_counted(adam, *a, **kw):
+    updates.append(1)
+    return update_fn(adam, *a, **kw)
+
+  with tempfile.TemporaryDirectory() as tmp, \
+      mock.patch.object(trainer.Adam, "update", update_counted):
+    gn = os.path.join(tmp, "gn")
+
+    # the protocol: train, evaluate, re-run strictly from the cache
+    t = time.time()
+
+    def first_run():
+      res = protocol.prepare_stages(scenes=scenes, work_dir=gn, **stages)
+      return res, protocol.evaluate_scenes(*res, scenes=scenes,
+                                           full_size=True, log=None)
+
+    (res, rows), launches["study_protocol"] = counted(wrappers, first_run)
+    steps_first = len(updates)
+    strict = protocol.prepare_stages(scenes=scenes, work_dir=gn,
+                                     strict_cache=True, **stages)
+    cfg, params = strict[3]["sceneA"]
+    d = strict[0]["sceneA"]
+    imgs = d["test"]["images"]
+    xa, Pa, _ = sequence.run_filter(res[3]["sceneA"][1], cfg, imgs)
+    xb, Pb, _ = sequence.run_filter(params, cfg, imgs)
+    out["protocol"] = {
+        "seconds": time.time() - t, "rows": rows,
+        "rows_finite": all(finite_fields(r) for r in rows),
+        "optimizer_steps": steps_first,
+        "optimizer_steps_expected": 4 * STUDY_STEPS,
+        "strict_rerun_optimizer_steps": len(updates) - steps_first,
+        "strict_rerun_params_bit_equal": all(
+            torch.equal(a, b) for name in ("sceneA", "heldout")
+            for a, b in zip(L.tree_leaves(res[3][name][1]),
+                            L.tree_leaves(strict[3][name][1]))),
+        "strict_rerun_maps_bit_equal": bool(torch.equal(xa, xb)
+                                            and torch.equal(Pa, Pb)),
+        "launches": launches["study_protocol"],
+        "launches_expected": {
+            "fused_warp_kalman": len(scenes) * (1 + EVAL_TIMING_REPS)
+                                 * (STUDY_TEST - 1),
+            "conv3x3_same": 0, "conv3x3_gn_chain": 0}}
+
+    # the calibration sweep, and the series recursion against the kernel
+    t = time.time()
+    K = d["train"]["K"].cpu().numpy()
+    gt = d["test"]["poses"].cpu().numpy()
+    rcfg = configs.synthetic_ransac(True)
+    sweep, meas = calibrate.sweep_scene(params, cfg, imgs, K, gt,
+                                        [2.37, 7.81], [1.0, 8.0], rcfg)
+    cfg32 = dataclasses.replace(
+        cfg, scoordnet=dataclasses.replace(cfg.scoordnet,
+                                           compute_dtype="float32"),
+        oflownet=dataclasses.replace(cfg.oflownet, compute_dtype="float32"))
+
+    def series_vs_kernel(c):
+      c1 = dataclasses.replace(c, w_scale=1.0)
+      series = calibrate.precompute_series(params, c1, imgs)
+      got = calibrate.filter_from_series(c1, series, c.chi2_threshold,
+                                         c.w_scale)
+      (wx, wP, _), n = counted(wrappers, lambda: sequence.run_filter(
+          params, c, imgs))
+      res_ = close_to(got, (wx, wP))
+      res_.update(launches=n, x_scale=wx.abs().max().item(),
+                  P_max_rel=((got[1] - wP).abs() / wP.abs()).max().item())
+      res_["x_max_rel"] = res_["x_max_abs"] / res_["x_scale"]
+      return res_
+
+    turns = {"fused": [], "composition": []}
+    plain = dataclasses.replace(cfg, use_fused_kernel=False)
+    for _ in range(STUDY_TURNS):
+      for name, c in (("fused", cfg), ("composition", plain)):
+        ms = cuda_ms(lambda c=c: sequence.run_filter(params, c, imgs), 1)
+        turns[name].append(ms)
+    out["calibrate"] = {
+        "seconds": time.time() - t, "points": len(sweep),
+        "points_finite": all(finite_fields(r) for r in sweep)
+                         and finite_fields(meas),
+        "measurement_only": meas,
+        "config": {"chi2_threshold": cfg.chi2_threshold,
+                   "w_scale": cfg.w_scale,
+                   "use_fused_kernel": cfg.use_fused_kernel,
+                   "adaptive_alpha_max": cfg.adaptive_alpha_max},
+        "series_vs_kernel_float32": series_vs_kernel(cfg32),
+        "series_vs_kernel_bf16": series_vs_kernel(cfg),
+        "launches_expected": STUDY_TEST - 1,
+        "run_filter_ms": turns,
+        "run_filter_ms_median": {k: float(np.median(v))
+                                 for k, v in turns.items()},
+        "frames": STUDY_TEST}
+
+    # the diagnosis of the held-out scene
+    t = time.time()
+    diag = diagnose.main([
+        "--work_dir", gn, "--full_size", "--scene", "heldout",
+        "--train_frames", str(STUDY_TRAIN), "--test_frames", str(STUDY_TEST),
+        "--modes", "measurement_only,cf_derigid,filtered_serving",
+        "--device", str(dev)])
+    out["diagnose"] = {
+        "seconds": time.time() - t,
+        "modes": [r["mode"] for r in diag["modes"]],
+        "finite": finite_fields(diag["modes"])
+                  and finite_fields(diag["scene_geometry"]),
+        "rows": diag["modes"], "scene_geometry": diag["scene_geometry"]}
+
+    # the conv study, each cell's launches counted
+    t = time.time()
+    cells = []
+    real_fps = conv_study.benchmark.filter_fps
+
+    def fps_counted(c, p, images, **kw):
+      r, n = counted(wrappers, lambda: real_fps(c, p, images, **kw))
+      cells.append((c.scoordnet.conv_impl, n))
+      return r
+
+    with mock.patch.object(conv_study.benchmark, "filter_fps", fps_counted):
+      cs = conv_study.main([
+          "--frames", str(STUDY_CONV_T), "--height", str(IMG[0]), "--width",
+          str(IMG[1]), "--norms", "group", "--impls",
+          "xla,pallas_3x3,pallas_fused", "--device", str(dev)])
+    per_cell = {}
+    for (impl, n), row in zip(cells, cs["rows"]):
+      c = conv_study.cell_config("group", impl, True)
+      first = kfnet.kernel_shapes(c, IMG, first=True)
+      later = kfnet.kernel_shapes(c, IMG)
+      want = {k: FILTER_FPS_RUNS * (len(first[k]) + (STUDY_CONV_T - 1)
+                                    * len(later[k]))
+              for k in ("conv3x3_same", "conv3x3_gn_chain")}
+      want["fused_warp_kalman"] = FILTER_FPS_RUNS * (STUDY_CONV_T - 1)
+      per_cell[impl] = {"launches": n, "launches_expected": want,
+                        "fps": row["fps"], "mfu": row["mfu"]}
+    launches["study_conv_study"] = {
+        k: sum(v["launches"][k] for v in per_cell.values()) for k in wrappers}
+    # every conv kernel call of one frame pair of each kernel cell (its
+    # seed-0 weights, its first two frames) against its plain version, and
+    # the calls' shapes against kernel_shapes' (OFlowNet stays on xla in
+    # both cells, so a pair's calls are one later frame's)
+    frames = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (STUDY_CONV_T,) + IMG).astype(np.float32)[:2]).to(dev)
+    pair_calls = {}
+    for impl in ("pallas_3x3", "pallas_fused"):
+      c = conv_study.cell_config("group", impl, True)
+      cparams = kfnet.init(0, c, IMG, device=dev)
+      pre = kfnet.preprocess_images(c, frames)
+      calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
+      with recording(c3, calls):
+        frame_pair_outputs(cparams, c, pre[0], pre[1])
+      later = kfnet.kernel_shapes(c, IMG)
+      pair_calls[impl] = {
+          "vs_plain": check_calls(c3, calls),
+          "shapes": {k: [call_shape(k, a, kw)
+                         for a, kw, _ in log] for k, log in calls.items()},
+          "shapes_expected": {k: [tuple(s) for s in later[k]]
+                              for k in calls}}
+      del cparams
+    out["conv_study"] = {"seconds": time.time() - t, "cells": per_cell,
+                         "frames": STUDY_CONV_T,
+                         "frame_pair_calls": pair_calls}
+
+    # the norm study over the group cache and a norm="none" cache
+    t = time.time()
+    nonorm = os.path.join(tmp, "none")
+    prepare_cache.copy_stage2(gn, nonorm, log=lambda *a: None)
+    before = len(updates)
+    protocol.prepare_stages(scenes=scenes[:1], work_dir=nonorm,
+                            scoordnet_norm="none",
+                            **dict(stages, test_frames=4))
+    none_steps = len(updates) - before
+    with mock.patch.object(norm_study, "STAGES",
+                           dict(norm_study.STAGES, train_frames=STUDY_TRAIN)):
+      ns = norm_study.main(["--gn_dir", gn, "--nonorm_dir", nonorm,
+                            "--test_frames", str(STUDY_TEST),
+                            "--bench_frames", str(STUDY_CONV_T),
+                            "--device", str(dev)])
+    out["norm_study"] = {
+        "seconds": time.time() - t, "none_cache_optimizer_steps": none_steps,
+        "none_cache_optimizer_steps_expected": 2 * STUDY_STEPS,
+        "perf": ns["perf"], "group_report": ns["group_report"],
+        "none_report": ns["none_report"],
+        "finite": finite_fields(ns["perf"]) and finite_fields(
+            [ns["group_report"], ns["none_report"], ns["paired"]])}
+
+    # the two profilers
+    t = time.time()
+    pf, launches["study_profile_filter"] = counted(
+        wrappers, lambda: profile_filter.main([
+            "--frames", str(STUDY_PROFILE_T), "--trace_dir",
+            os.path.join(tmp, "trace"), "--device", str(dev)]))
+    out["profile_filter"] = {
+        "seconds": time.time() - t,
+        **{k: pf[k] for k in ("wall_ms_per_run",
+                              "device_busy_ms_per_run", "idle_fraction",
+                              "conv_class_share", "conv_class_ms_per_run",
+                              "other_ms_per_run", "own_kernels_per_run",
+                              "n_ops")},
+        "top_ops": pf["ops"][:5],
+        "fused_kernels_per_run_expected": STUDY_PROFILE_T - 1,
+        "launches": launches["study_profile_filter"],
+        "launches_expected": {
+            "fused_warp_kalman": (1 + profile_filter.RUNS)
+                                 * (STUDY_PROFILE_T - 1),
+            "conv3x3_same": 0, "conv3x3_gn_chain": 0}}
+    t = time.time()
+    pt, launches["study_profile_tick"] = counted(
+        wrappers, lambda: profile_tick.main(["--device", str(dev)]))
+    out["profile_tick"] = {
+        "seconds": time.time() - t, "report": pt,
+        "launches": launches["study_profile_tick"],
+        "launches_expected": {"fused_warp_kalman": 2 * PT_FLEET_TICKS,
+                              "conv3x3_same": 0, "conv3x3_gn_chain": 0}}
+
+    # the host tools: manifest, labels, visualisation
+    t = time.time()
+    manifest = cache_manifest.build_manifest(gn)
+    clean = cache_manifest.verify_manifest(gn, manifest)
+    flipped = os.path.join(tmp, "flipped")
+    shutil.copytree(gn, flipped)
+    victim = os.path.join(flipped, "stage2_indoor", "params.npz")
+    with open(victim, "r+b") as f:
+      data = bytearray(f.read())
+      data[len(data) // 2] ^= 0xFF
+      f.seek(0)
+      f.write(bytes(data))
+    tampered = cache_manifest.verify_manifest(flipped, manifest)
+    root = os.path.join(tmp, "data")
+    fixture.write_seven_scenes_fixture(root, train_frames=STUDY_FIX_TRAIN,
+                                       test_frames=STUDY_FIX_TEST,
+                                       height=IMG[0], width=IMG[1],
+                                       device=dev)
+    lab = {}
+    for split in ("train", "test"):
+      lab[split] = generate_labels.main([
+          "--input_folder", root, "--output_folder",
+          os.path.join(tmp, f"labels_{split}"), "--scene", "chess",
+          "--split", split, "--device", str(dev)])
+    dump, viz = os.path.join(tmp, "dump"), os.path.join(tmp, "viz")
+    eval_main.main(["--input_folder", root, "--scene", "chess",
+                    "--net_scale", FLAGSHIP_NET_SCALE, "--device", str(dev),
+                    "--kfnet_ckpt", os.path.join(pretrained.FULL_ASSETS,
+                                                 "stage3_sceneA"),
+                    "--dump_dir", dump])
+    visualize.main(["--dump_dir", os.path.join(dump, "seq-02"),
+                    "--out_dir", viz, "--gt_labels",
+                    os.path.join(tmp, "labels_test", "seq-02")])
+    pngs = sorted(os.listdir(viz))
+    out["host_tools"] = {
+        "seconds": time.time() - t, "manifest_stages": sorted(
+            manifest["stages"]),
+        "manifest_clean_problems": clean, "manifest_flipped_problems":
+            tampered,
+        "labels": lab, "pngs": len(pngs),
+        "pngs_expected": 3 * STUDY_FIX_TEST,
+        "png_shape": list(image_io.read_png(os.path.join(viz, pngs[0])).shape)
+                     if pngs else None}
+  return out, launches
+
+
+def check_study(st):
+  """Raise on any hold of phase "study" that failed."""
+  p = st["protocol"]
+  if not p["rows_finite"] or len(p["rows"]) != 2:
+    raise AssertionError(f"study protocol rows: {p['rows']}")
+  if p["optimizer_steps"] != p["optimizer_steps_expected"] or \
+      p["strict_rerun_optimizer_steps"]:
+    raise AssertionError(f"study protocol steps {p['optimizer_steps']} then "
+                         f"{p['strict_rerun_optimizer_steps']}")
+  if not (p["strict_rerun_params_bit_equal"]
+          and p["strict_rerun_maps_bit_equal"]):
+    raise AssertionError("study: the strict re-run differs from the first")
+  if p["launches"] != p["launches_expected"]:
+    raise AssertionError(f"study protocol launches {p['launches']}, "
+                         f"expected {p['launches_expected']}")
+  c = st["calibrate"]
+  if c["points"] != 4 or not c["points_finite"]:
+    raise AssertionError(f"study calibrate sweep: {c['points']} points")
+  s32 = c["series_vs_kernel_float32"]
+  if not s32["held"]:
+    raise AssertionError(f"filter_from_series off the fused kernel's "
+                         f"run_filter in float32: {s32}")
+  for k in ("series_vs_kernel_float32", "series_vs_kernel_bf16"):
+    if c[k]["launches"]["fused_warp_kalman"] != c["launches_expected"]:
+      raise AssertionError(f"{k} launches {c[k]['launches']}")
+  dg = st["diagnose"]
+  if not dg["finite"] or dg["modes"][:1] != ["measurement_only"] or \
+      len(dg["modes"]) != 4:
+    raise AssertionError(f"study diagnose: {dg['modes']}, finite "
+                         f"{dg['finite']}")
+  for impl, cell in st["conv_study"]["cells"].items():
+    if cell["launches"] != cell["launches_expected"] or not (
+        cell["fps"] > 0 and cell["mfu"] is not None):
+      raise AssertionError(f"conv_study cell {impl}: {cell}")
+  if sorted(st["conv_study"]["cells"]) != ["pallas_3x3", "pallas_fused",
+                                           "xla"]:
+    raise AssertionError(f"conv_study cells {st['conv_study']['cells']}")
+  for impl, pair in st["conv_study"]["frame_pair_calls"].items():
+    if pair["shapes"] != pair["shapes_expected"] or not any(
+        pair["shapes"].values()):
+      raise AssertionError(f"conv_study {impl}: a frame pair's conv calls "
+                           f"{pair['shapes']}, kernel_shapes "
+                           f"{pair['shapes_expected']}")
+  ns = st["norm_study"]
+  if not ns["finite"] or ns["none_cache_optimizer_steps"] != \
+      ns["none_cache_optimizer_steps_expected"]:
+    raise AssertionError(f"study norm_study: {ns}")
+  pf = st["profile_filter"]
+  if pf["own_kernels_per_run"]["fused_filter_kernel"] != \
+      pf["fused_kernels_per_run_expected"] or \
+      pf["launches"] != pf["launches_expected"] or \
+      not 0.0 <= pf["idle_fraction"] < 1.0:
+    raise AssertionError(f"study profile_filter: {pf}")
+  pt = st["profile_tick"]
+  if pt["launches"] != pt["launches_expected"] or not finite_fields(
+      {k: pt["report"][k] for k in ("compute_ms", "roundtrip_floor_ms",
+                                    "tick_ms", "dispatch_residual_ms")}):
+    raise AssertionError(f"study profile_tick: {pt}")
+  h = st["host_tools"]
+  if h["manifest_clean_problems"] or len(h["manifest_flipped_problems"]) != 1 \
+      or "stage2_indoor" not in h["manifest_flipped_problems"][0]:
+    raise AssertionError(f"study cache_manifest: {h}")
+  if h["labels"]["train"]["frames"] != STUDY_FIX_TRAIN or \
+      h["pngs"] != h["pngs_expected"] or h["png_shape"] != [IMG[0], IMG[1],
+                                                             3]:
+    raise AssertionError(f"study labels / visualize: {h}")
+
+
 def main():
   t_all = time.time()
   import numpy as np
@@ -3293,6 +3720,14 @@ def main():
       total_seconds=round(time.time() - t_all, 1))
   check_mesh(mesh_checks, mesh_times)
 
+  # 15. the study tools at full width
+  t0 = time.time()
+  st, study_launches = study_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("study", t0, gpu=gpu, nvidia_smi=smi, tol={"path": TOL_PATH}, **st,
+      total_seconds=round(time.time() - t_all, 1))
+  check_study(st)
+
   bad = [m for m in FORBIDDEN if m in sys.modules]
   if bad:
     raise AssertionError(f"imported {bad}")
@@ -3316,7 +3751,7 @@ def main():
               "soak": sk["launches"],
               **{f"fleet_{k}": v["launches"]
                  for k, v in fleet_checks.items()},
-              **mesh_launches}
+              **mesh_launches, **study_launches}
   phase_launches = lambda k: {p: v[k] for p, v in by_phase.items()}
   print(json.dumps({"kernels": [{
       # the fused update: the main path's heads-in entry, one 60x80 map

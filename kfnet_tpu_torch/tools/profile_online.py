@@ -68,11 +68,17 @@ def profiled_kernels(prof, copies=False):
   with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "trace.json")
     prof.export_chrome_trace(path)
-    with open(path) as f:
-      events = json.load(f)["traceEvents"]
-  cats = ("kernel",) + (COPIES if copies else ())
+    events = trace_events(path, ("kernel",) + (COPIES if copies else ()))
   return [(e["name"] if e["cat"] == "kernel" else f"[{e['cat']}] {e['name']}",
-           e["ts"], e["dur"]) for e in events if e.get("cat") in cats]
+           e["ts"], e["dur"]) for e in events]
+
+
+def trace_events(path, categories):
+  """The events of ``categories`` in the chrome trace at ``path`` (as
+  ``export_chrome_trace`` writes it), as dicts."""
+  with open(path) as f:
+    events = json.load(f)["traceEvents"]
+  return [e for e in events if e.get("cat") in categories]
 
 
 def host_ms(tick, n):
