@@ -8,7 +8,8 @@ Phases, one line each, with their seconds:
      power limit, the float32 settings in force (TF32 off, so the plain
      versions' float32 products are full float32);
   2. build: the two CUDA libraries, one nvcc each, started together, from
-     the sources in the checkout;
+     the sources in the checkout, then the checkpoint reader's zstd
+     decoder (utils/csrc/zstd_decode.cpp, host C++, libc only);
   3. the fused warp + Kalman kernel against its plain PyTorch version on
      the card, at the main path's 60x80 map (r=4, χ² 2.365974), with
      out-of-bounds-heavy flow, and on an odd 17x23 map (r=3): atol 2e-5 on
@@ -181,17 +182,36 @@ Phases, one line each, with their seconds:
      trained weights through evaluate_sequence (graphed) against
      run_filter_python_loop (eager) on 8 held-out frames at TOL_PATH, 14
      fused launches;
-  10. pretrained_full: the full-size flagship weights (the committed .npz
-     export, pretrained.FULL_ASSETS: stage3_sceneA, GroupNorm, w_scale 16,
-     float32 masters from bf16) loaded on the card; sceneA's held-out
-     trajectory (seed 0, trajectory seed 99, PRE_T frames at 640x480)
+  10. pretrained_full: the four full-size shipped stages (full_stages:
+     artifacts/pretrained_full and artifacts/pretrained_full_nonorm,
+     stage3_sceneA and stage3_outdoor_train, the JAX package's orbax
+     exports read by utils/checkpoint.py's reader, float32 masters from
+     bf16), each loaded on the card (load seconds: the reader's decode of
+     about 40 MB), GroupNorm stages at w_scale 16 and norm="none" ones at
+     their meta's serving w_scale 2; its scene's held-out trajectory
+     (its row of the protocol's table: sceneA seed 0, outdoor_train seed
+     50 at world scale 20; trajectory seed + 99; PRE_T frames at 640x480)
      rendered on the card and served by the graphed OnlineRelocalizer
      (its default RANSAC) in the default and the conv-kernel
-     configurations: medians below FULL_GATE in each, printed beside the
-     JAX package's on the CPU (0.0401 m / 0.666°); launches counted (the
-     fused update PRE_T - 1 a config, the conv kernels kfnet.kernel_shapes'
-     count: 192 chain, 91 same); every conv kernel call of one frame pair
-     against its plain version (check_calls) with these weights;
+     configurations (conv_kernel_config: SCoordNet on the chain kernel
+     for GroupNorm, on conv3x3_same for norm none): medians below
+     FULL_GATE for sceneA and OUTDOOR_GATE (twice the JAX package's CPU
+     medians, JAX_CPU_MEDIANS) for outdoor_train, poses finite, launches
+     counted (the fused update PRE_T - 1 a config, the conv kernels
+     kfnet.kernel_shapes' count); for one stage of each trunk, every conv
+     kernel call of one frame pair against its plain version
+     (check_calls) with its weights;
+  10b. winograd: the flagship and the norm="none" sceneA stage at
+     640x480 with conv_impl="winograd" on both nets (kernels/winograd.py,
+     F(2x2, 3x3): the contraction a torch.bmm with float32 accumulation)
+     against conv_impl="xla": every Winograd conv call of one frame pair
+     against cuDNN's direct conv on its inputs at WINO_BF16 of the
+     largest |y| (bf16), the pair's (z, V) of the float32 nets at WINO_Z
+     and WINO_V (tests/test_winograd.py's bounds); one PRE_T-frame
+     run_filter of each (the fused update's PRE_T - 1 launches, the
+     poses' medians by the batched solve); filter_fps of the two in
+     WINO_TURNS alternating turns each (a record, not a claim); whether
+     torch.bmm(out_dtype=) has a backward on the card;
   11. data: a 7-Scenes fixture (chess, DATA_TRAIN + DATA_TEST frames at
      640x480) and a Cambridge fixture written by the port's fixture
      writers (rendered on the card, PNG-encoded by image_io); every file
@@ -329,7 +349,8 @@ Phases, one line each, with their seconds:
      committed flagship over its test split with --dump_dir, and
      visualize on that dump (3 PNGs a frame at 480x640);
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
-nothing under artifacts/; writes only the kernel build directory, and the
+the shipped full-size stages under artifacts/ (the JAX package's orbax
+exports) through kfnet_tpu_torch's own reader; writes only the kernel build directory, and the
 training checkpoints of phase 9 and the fixtures, train outputs and dumps
 of phases 11 and 12, in temporary directories it removes.
 """
@@ -384,8 +405,8 @@ FLEET_RESET = 3             # the tick at which slot 2 starts over
 # the batched pose solve against each frame's solve on the same indices,
 # T_wc: rtol, and an atol for its entries near 0
 POSE_RTOL, POSE_ATOL = 1e-4, 1e-6
-FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "optax", "tensorstore", "cv2",
-             "PIL")
+FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "optax", "tensorstore", "zstandard",
+             "cv2", "PIL")
 # phase "train" (the stages at full width, 640x480, on a rendered sequence)
 TRAIN_FRAMES = 16           # frames of the training sequence
 TRAIN_B, TRAIN_STEPS, TRAIN_CHUNK = 8, 6, 3  # stages 1 and 2
@@ -406,6 +427,28 @@ GOLDEN = dict(rtol=5e-4, atol=5e-5)
 TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL, TRAIN_GRAD_LEAF = 2e-3, 1e-5, 5e-4
 # phase "pretrained_full": the full-size sceneA weights' medians, each config
 FULL_GATE = {"median_translation_m": 0.10, "median_rotation_deg": 2.0}
+# the JAX package's medians of each full-size stage on the CPU over the
+# same frames (tools_port/jax_full_medians.py: OnlineRelocalizer, its
+# default RANSAC, seed 0), and the outdoor stages' gates: twice those
+JAX_CPU_MEDIANS = {
+    "full_sceneA": {"median_translation_m": 0.05010,
+                    "median_rotation_deg": 0.8137},
+    "full_nonorm_sceneA": {"median_translation_m": 0.04874,
+                           "median_rotation_deg": 0.6102},
+    "full_outdoor_train": {"median_translation_m": 0.8868,
+                           "median_rotation_deg": 1.0380},
+    "full_nonorm_outdoor_train": {"median_translation_m": 0.4057,
+                                  "median_rotation_deg": 0.5068}}
+OUTDOOR_GATE = {
+    norm: {k: 2.0 * v for k, v in JAX_CPU_MEDIANS[name].items()}
+    for norm, name in (("group", "full_outdoor_train"),
+                       ("none", "full_nonorm_outdoor_train"))}
+# phase "winograd": tests/test_winograd.py's bounds, bf16 per conv output
+# (of its largest |y|) and (z, V) of the float32 nets; filter_fps turns
+WINO_BF16 = 0.015
+WINO_Z = dict(rtol=1e-3, atol=1e-4)
+WINO_V = dict(rtol=1e-2, atol=1e-6)
+WINO_TURNS = 5
 # phase "data": the fixtures' frames, the loader's batch and epochs, the
 # labels' tolerance (tests/test_native_io.py:61), and the train scripts at
 # full width: batch, steps, BPTT window
@@ -1526,25 +1569,51 @@ def frame_pair_outputs(params, c, img0, img1):
 
 
 def conv_kernel_config(cfg):
-  """``cfg`` with SCoordNet on the chain kernel and OFlowNet on the 3x3
-  kernel (the conv-kernel configuration)."""
+  """``cfg`` in the conv-kernel configuration: OFlowNet on the 3x3 kernel,
+  SCoordNet on the chain kernel where its trunk is GroupNorm (the chain's
+  prologues are GroupNorm passes) and on the 3x3 kernel otherwise."""
+  sc_impl = "pallas_fused" if cfg.scoordnet.norm == "group" else "pallas_3x3"
   return dataclasses.replace(
-      cfg, scoordnet=dataclasses.replace(cfg.scoordnet,
-                                         conv_impl="pallas_fused"),
+      cfg, scoordnet=dataclasses.replace(cfg.scoordnet, conv_impl=sc_impl),
       oflownet=dataclasses.replace(cfg.oflownet, conv_impl="pallas_3x3"))
 
 
+def full_stages():
+  """The four full-size stages: (name, export root, scene, gate); the
+  flagship (GroupNorm sceneA) first."""
+  from kfnet_tpu_torch import pretrained
+  return [("full_sceneA", pretrained.FULL_ASSETS, "sceneA", FULL_GATE),
+          ("full_nonorm_sceneA", pretrained.FULL_NONORM_ASSETS, "sceneA",
+           FULL_GATE),
+          ("full_outdoor_train", pretrained.FULL_ASSETS, "outdoor_train",
+           OUTDOOR_GATE["group"]),
+          ("full_nonorm_outdoor_train", pretrained.FULL_NONORM_ASSETS,
+           "outdoor_train", OUTDOOR_GATE["none"])]
+
+
+def stage_frames(scene, h, w, dev):
+  """PRE_T frames of ``scene``'s held-out trajectory at h x w, rendered
+  on the card: its row of the protocol's scene table (seed, world scale),
+  trajectory seed + 99, one frame in 48 of the orbit apart."""
+  from kfnet_tpu_torch.data import synthetic
+  from kfnet_tpu_torch.tools import protocol
+  spec = {s.name: s for s in protocol.DEFAULT_SCENES}[scene]
+  return synthetic.make_sequence(PRE_T, height=h, width=w, seed=spec.seed,
+                                 scale=spec.scale, traj_seed=spec.seed + 99,
+                                 duration=PRE_T / 48.0, device=dev)
+
+
 def pretrained_full_phase(dev, wrappers):
-  """Phase "pretrained_full": the full-size flagship weights
-  (pretrained.FULL_ASSETS, stage3_sceneA) served at 640x480 through the
-  graphed OnlineRelocalizer in both configurations, on sceneA's held-out
-  trajectory rendered on the card; each conv kernel call of one frame
-  pair against its plain version. Returns the phase's fields; the caller
-  asserts."""
+  """Phase "pretrained_full": the four full-size stages (full_stages:
+  read from the JAX package's orbax exports under artifacts/ by the
+  port's own reader) each served at 640x480 through the graphed
+  OnlineRelocalizer in both configurations, on its scene's held-out
+  trajectory rendered on the card; for one stage of each trunk, each conv
+  kernel call of one frame pair against its plain version. Returns the
+  phase's fields; the caller asserts."""
   import numpy as np
   import torch
   from kfnet_tpu_torch import pretrained
-  from kfnet_tpu_torch.data import synthetic
   from kfnet_tpu_torch.eval.online import OnlineRelocalizer
   from kfnet_tpu_torch.kernels import conv3x3 as c3
   from kfnet_tpu_torch.models import kfnet
@@ -1552,51 +1621,213 @@ def pretrained_full_phase(dev, wrappers):
   from kfnet_tpu_torch.pose import metrics
   from kfnet_tpu_torch.utils import checkpoint
 
-  t0 = time.time()
-  cfg, params = pretrained.load(pretrained.FULL_ASSETS, device=dev)
-  torch.cuda.synchronize()
-  load_s = time.time() - t0
-  meta = checkpoint.load_meta(os.path.join(pretrained.FULL_ASSETS,
-                                           "stage3_sceneA"))
-  h, w = int(meta["height"]), int(meta["width"])
-  data = synthetic.make_sequence(PRE_T, height=h, width=w, seed=0,
-                                 traj_seed=99, duration=PRE_T / 48.0,
-                                 device=dev)
-  K = data["K"].cpu().numpy()
-  gt = data["poses"].cpu().numpy()
-  conv_cfg = conv_kernel_config(cfg)
-  out = {"weights": "kfnet_tpu_torch/assets/pretrained_full/stage3_sceneA",
+  repo = os.path.dirname(os.path.abspath(__file__))
+  out, frames, checked = {}, {}, set()
+  for name, root, scene, gate in full_stages():
+    t0 = time.time()
+    cfg, params = pretrained.load(root, scene=scene, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    stage = os.path.join(root, f"stage3_{scene}")
+    meta = checkpoint.load_meta(stage)
+    h, w = int(meta["height"]), int(meta["width"])
+    if scene not in frames:
+      frames[scene] = stage_frames(scene, h, w, dev)
+    data = frames[scene]
+    K = data["K"].cpu().numpy()
+    gt = data["poses"].cpu().numpy()
+    conv_cfg = conv_kernel_config(cfg)
+    r = {"weights": os.path.relpath(stage, repo), "scene": scene,
          "load_seconds": load_s, "frames": PRE_T, "frame_size": [h, w],
          "norm": cfg.scoordnet.norm, "w_scale": cfg.w_scale,
          "params": sum(p.numel() for p in L.tree_leaves(params)),
          "on_device": all(p.device.type == "cuda"
                           for p in L.tree_leaves(params)),
-         "jax_cpu_medians_for_comparison": {"translation_m": 0.0401,
-                                            "rotation_deg": 0.666},
+         "gate": gate, "jax_cpu_medians": JAX_CPU_MEDIANS[name],
+         "conv_impls": [conv_cfg.scoordnet.conv_impl,
+                        conv_cfg.oflownet.conv_impl],
          "configs": {}}
-  for name, c in (("default", cfg), ("conv_kernels", conv_cfg)):
-    reloc = OnlineRelocalizer(params, c, K, device=dev, seed=0)
-    res, n = counted(wrappers, lambda: [reloc.process(f)
-                                        for f in data["images"]])
-    poses = np.stack([p for p, _ in res])
-    t_err, r_err = metrics.median_errors(poses, gt)
-    first = kfnet.kernel_shapes(c, IMG, first=True)
-    later = kfnet.kernel_shapes(c, IMG)
-    expected = {"fused_warp_kalman": PRE_T - 1}
-    for k in ("conv3x3_same", "conv3x3_gn_chain"):
-      expected[k] = len(first[k]) + (PRE_T - 1) * len(later[k])
-    out["configs"][name] = {
-        "median_translation_m": float(t_err),
-        "median_rotation_deg": float(r_err),
-        "finite": bool(np.isfinite(poses).all()),
-        "consistent_frac_last": res[-1][1]["consistent_frac"],
-        "launches": n, "launches_expected": expected}
-  up = lambda i: kfnet.preprocess_images(cfg, data["images"][i])
-  calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
-  with recording(c3, calls):
-    frame_pair_outputs(params, conv_cfg, up(0), up(1))
-  out["calls_in_path_vs_plain"] = check_calls(c3, calls)
+    for cname, c in (("default", cfg), ("conv_kernels", conv_cfg)):
+      reloc = OnlineRelocalizer(params, c, K, device=dev, seed=0)
+      res, n = counted(wrappers, lambda: [reloc.process(f)
+                                          for f in data["images"]])
+      poses = np.stack([p for p, _ in res])
+      t_err, r_err = metrics.median_errors(poses, gt)
+      first = kfnet.kernel_shapes(c, IMG, first=True)
+      later = kfnet.kernel_shapes(c, IMG)
+      expected = {"fused_warp_kalman": PRE_T - 1}
+      for k in ("conv3x3_same", "conv3x3_gn_chain"):
+        expected[k] = len(first[k]) + (PRE_T - 1) * len(later[k])
+      r["configs"][cname] = {
+          "median_translation_m": float(t_err),
+          "median_rotation_deg": float(r_err),
+          "finite": bool(np.isfinite(poses).all()),
+          "consistent_frac_last": res[-1][1]["consistent_frac"],
+          "launches": n, "launches_expected": expected}
+    if cfg.scoordnet.norm not in checked:  # one stage of each trunk
+      checked.add(cfg.scoordnet.norm)
+      up = lambda i: kfnet.preprocess_images(cfg, data["images"][i])
+      calls = {"conv3x3_same": [], "conv3x3_gn_chain": []}
+      with recording(c3, calls):
+        frame_pair_outputs(params, conv_cfg, up(0), up(1))
+      r["calls_in_path_vs_plain"] = check_calls(c3, calls)
+    out[name] = r
+    del params
+    torch.cuda.empty_cache()
   return out
+
+
+def check_pretrained_full(full):
+  """Each stage on the card with its trunk's serving point; in each
+  configuration, launches as kernel_shapes counts them, finite poses and
+  medians inside its gate; the held calls within their tolerances."""
+  if len(full) != 4:
+    raise AssertionError(f"pretrained_full: {sorted(full)}")
+  for name, st in full.items():
+    want = (("group", 16.0) if st["norm"] == "group" else ("none", 2.0))
+    if not st["on_device"] or (st["norm"], st["w_scale"]) != want or \
+        st["norm"] != ("none" if "nonorm" in name else "group"):
+      raise AssertionError(f"full-size weights {name}: {st}")
+    for cname, r in st["configs"].items():
+      if r["launches"] != r["launches_expected"]:
+        raise AssertionError(f"pretrained_full {name} {cname} launches "
+                             f"{r['launches']}, expected "
+                             f"{r['launches_expected']}")
+      if not (r["finite"] and all(r[k] < v for k, v in st["gate"].items())):
+        raise AssertionError(f"{st['scene']} not relocalized by {name} in "
+                             f"the {cname} config: {r}")
+    calls = st.get("calls_in_path_vs_plain")  # check_calls raised on a miss
+    kinds = (("conv3x3_same", "conv3x3_gn_chain") if st["norm"] == "group"
+             else ("conv3x3_same",))
+    if calls is not None and not all(calls[k]["calls"] for k in kinds):
+      raise AssertionError(f"pretrained_full {name} held no call of "
+                           f"{kinds}: {calls}")
+  if sum("calls_in_path_vs_plain" in st for st in full.values()) != 2:
+    raise AssertionError("pretrained_full: calls held for one stage of each "
+                         "trunk")
+
+
+def with_conv_impl(cfg, impl, dtype=None):
+  """``cfg`` with both nets on ``impl`` (and in ``dtype`` where given)."""
+  kw = {"conv_impl": impl}
+  if dtype is not None:
+    kw["compute_dtype"] = dtype
+  return dataclasses.replace(
+      cfg, scoordnet=dataclasses.replace(cfg.scoordnet, **kw),
+      oflownet=dataclasses.replace(cfg.oflownet, **kw))
+
+
+def bmm_dtype_has_backward(dev) -> bool:
+  """Whether this torch differentiates ``torch.bmm(..., out_dtype=)`` (the
+  Winograd contraction's bf16 route; kernels/winograd.py upcasts where a
+  gradient is needed either way)."""
+  import torch
+  a = torch.ones(2, 3, 4, device=dev, dtype=torch.bfloat16,
+                 requires_grad=True)
+  try:
+    torch.bmm(a, a.detach().transpose(1, 2),
+              out_dtype=torch.float32).sum().backward()
+  except (RuntimeError, NotImplementedError):
+    return False
+  return a.grad is not None
+
+
+def direct_conv(x, w, bias, cd):
+  """The direct conv of nn/layers.conv (SAME, stride 1): cuDNN's output
+  rounded to ``cd``, the bias added in float32 and rounded again."""
+  import torch
+  import torch.nn.functional as F
+  y = F.conv2d(x.to(cd), w.to(cd), padding=1)
+  if bias is not None:
+    y = (y.to(torch.float32) + bias[:, None, None]).to(cd)
+  return y
+
+
+def winograd_phase(dev, wrappers):
+  """Phase "winograd": the flagship (GroupNorm) and the norm="none"
+  sceneA stage at 640x480 with conv_impl="winograd" on both nets, against
+  conv_impl="xla": every Winograd conv call of one frame pair against the
+  direct conv on its inputs at WINO_BF16 of its largest |y| (bf16), the
+  pair's (z, V) in float32 at WINO_Z / WINO_V; one PRE_T-frame run_filter
+  (its fused launches, its poses' medians); filter_fps of the two in
+  WINO_TURNS alternating turns each. Returns the phase's fields; the
+  caller asserts."""
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch import pretrained
+  from kfnet_tpu_torch.eval import benchmark, eval_sequence
+  from kfnet_tpu_torch.filter import sequence
+  from kfnet_tpu_torch.kernels import winograd
+  from kfnet_tpu_torch.models import kfnet
+  from kfnet_tpu_torch.pose import metrics
+
+  out = {"bmm_dtype_backward": bmm_dtype_has_backward(dev), "stages": {}}
+  for name, root, scene, gate in full_stages()[:2]:
+    cfg, params = pretrained.load(root, scene=scene, device=dev)
+    data = stage_frames(scene, IMG[0], IMG[1], dev)
+    images, K = data["images"], data["K"].cpu().numpy()
+    wcfg, xcfg = with_conv_impl(cfg, "winograd"), with_conv_impl(cfg, "xla")
+    up = lambda i: kfnet.preprocess_images(cfg, images[i])
+    calls, conv = [], winograd.conv3x3_winograd
+
+    def recorded(x, w, bias=None, compute_dtype=torch.bfloat16):
+      y = conv(x, w, bias, compute_dtype)
+      calls.append((x, w, bias, compute_dtype, y))
+      return y
+
+    with mock.patch.object(winograd, "conv3x3_winograd", recorded):
+      frame_pair_outputs(params, wcfg, up(0), up(1))
+    worst = 0.0
+    for x, w, bias, cd, y in calls:
+      ref = direct_conv(x, w, bias, cd).to(torch.float32)
+      err = (y.to(torch.float32) - ref).abs().max().item()
+      worst = max(worst, err / max(ref.abs().max().item(), 1e-30))
+    shapes = sorted({(tuple(x.shape[-3:]), w.shape[0])
+                     for x, w, *_ in calls})
+    w32 = frame_pair_outputs(params, with_conv_impl(cfg, "winograd",
+                                                    "float32"), up(0), up(1))
+    x32 = frame_pair_outputs(params, with_conv_impl(cfg, "xla", "float32"),
+                             up(0), up(1))
+    gap = {k: (w32[k] - x32[k]).abs().max().item() for k in w32}
+    f32_held = bool(torch.allclose(w32["z"], x32["z"], **WINO_Z)
+                    and torch.allclose(w32["V"], x32["V"], **WINO_V))
+    runs = {}
+    for cname, c in (("winograd", wcfg), ("xla", xcfg)):
+      (xs, Ps, _), n = counted(
+          wrappers, lambda: sequence.run_filter(params, c, images))
+      solve = eval_sequence.make_pose_solver(K)
+      poses = solve(xs, Ps, torch.Generator(device=dev).manual_seed(0))
+      poses = poses["T_wc"].cpu().numpy()
+      t_err, r_err = metrics.median_errors(poses,
+                                           data["poses"].cpu().numpy())
+      runs[cname] = {"median_translation_m": t_err,
+                     "median_rotation_deg": r_err,
+                     "finite": bool(np.isfinite(poses).all()),
+                     "launches": n}
+    fps = {"winograd": [], "xla": []}
+    for _ in range(WINO_TURNS):
+      for cname, c in (("winograd", wcfg), ("xla", xcfg)):
+        fps[cname].append(benchmark.filter_fps(c, params, images))
+    out["stages"][name] = {
+        "norm": cfg.scoordnet.norm, "conv_calls": len(calls),
+        "conv_shapes": shapes, "bf16_worst_of_max_y": worst,
+        "bf16_held": bool(calls) and worst <= WINO_BF16,
+        "float32_max_abs": gap, "float32_held": f32_held,
+        "run_filter": runs,
+        "filter_fps": {k: {"turns": v, "median": float(np.median(v))}
+                       for k, v in fps.items()}}
+    del params
+    torch.cuda.empty_cache()
+  return out
+
+
+def check_winograd(wg):
+  for name, st in wg["stages"].items():
+    if not (st["bf16_held"] and st["float32_held"]):
+      raise AssertionError(f"winograd {name} off the direct conv: {st}")
+    for cname, r in st["run_filter"].items():
+      if r["launches"]["fused_warp_kalman"] != PRE_T - 1 or not r["finite"]:
+        raise AssertionError(f"winograd {name} {cname} run_filter: {r}")
 
 
 class CliTimer:
@@ -2267,7 +2498,7 @@ def mesh_phase(dev, wrappers, params, cfg, conv_cfg, cfg32, K):
           if name == "conv_kernels" else 0)
     checks[f"relocalizer_{name}_depth{depth}"] = row
   checks["relocalizer_float32_sceneA_depth0"]["weights"] = (
-      "kfnet_tpu_torch/assets/pretrained_full/stage3_sceneA")
+      "artifacts/pretrained_full/stage3_sceneA")
   launches["mesh_relocalizer"] = checks[
       "relocalizer_float32_sceneA_depth0"]["launches"]
 
@@ -2928,6 +3159,7 @@ def main():
   from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
   from kfnet_tpu_torch.nn import layers as L
   from kfnet_tpu_torch.pose import ransac
+  from kfnet_tpu_torch.utils import ocdbt
   from kfnet_tpu_torch.tools import conv_tiles, profile_online
 
   # 1. environment
@@ -2945,8 +3177,12 @@ def main():
   _build.build_libraries([(ff.LIBRARY, ff.SOURCES), (c3.LIBRARY, c3.SOURCES)])
   ff.build()
   c3.build()
+  t1 = time.time()
+  ocdbt.load_library()  # the checkpoint reader's zstd decoder (host C++)
   say("build", t0, sources=["kfnet_tpu_torch/kernels/csrc/fused_filter.cu",
-                            "kfnet_tpu_torch/kernels/csrc/conv3x3.cu"])
+                            "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
+                            "kfnet_tpu_torch/utils/csrc/zstd_decode.cpp"],
+      host_library_seconds=round(time.time() - t1, 2))
 
   # 3. kernel against its plain version on the card
   t0 = time.time()
@@ -3580,22 +3816,22 @@ def main():
     raise AssertionError(f"card off the CPU: "
                          f"{train_checks['float32_card_vs_cpu']}")
 
-  # 10. the full-size shipped weights at 640x480
+  # 10. the four full-size shipped stages at 640x480, read from artifacts/
   t0 = time.time()
   full = pretrained_full_phase(dev, wrappers)
   print(smi, flush=True)
-  say("pretrained_full", t0, gpu=gpu, nvidia_smi=smi, gate=FULL_GATE, **full,
+  say("pretrained_full", t0, gpu=gpu, nvidia_smi=smi, stages=full,
       total_seconds=round(time.time() - t_all, 1))
-  if not full["on_device"] or full["norm"] != "group" or \
-      full["w_scale"] != 16.0:
-    raise AssertionError(f"full-size weights: {full}")
-  for name, r in full["configs"].items():
-    if r["launches"] != r["launches_expected"]:
-      raise AssertionError(f"pretrained_full {name} launches {r['launches']}"
-                           f", expected {r['launches_expected']}")
-    if not (r["finite"] and all(r[k] < v for k, v in FULL_GATE.items())):
-      raise AssertionError(f"sceneA not relocalized by the full-size "
-                           f"weights in the {name} config: {r}")
+  check_pretrained_full(full)
+
+  # 10b. Winograd convs on the flagship and the norm="none" sceneA stage
+  t0 = time.time()
+  wg = winograd_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("winograd", t0, gpu=gpu, nvidia_smi=smi, tol={
+      "bf16_of_max_y": WINO_BF16, "z": WINO_Z, "V": WINO_V}, **wg,
+      total_seconds=round(time.time() - t_all, 1))
+  check_winograd(wg)
 
   # 11. the on-disk data path and the three train scripts
   t0 = time.time()
@@ -3739,8 +3975,12 @@ def main():
               "sequence_conv_kernels": conv_forms["graphed"]["launches"],
               "pretrained": pre["launches"],
               "train": train_launches,
-              **{f"pretrained_full_{k}": v["launches"]
-                 for k, v in full["configs"].items()},
+              **{f"pretrained_{s}_{k}": v["launches"]
+                 for s, st in full.items()
+                 for k, v in st["configs"].items()},
+              **{f"winograd_{s}_{k}": v["launches"]
+                 for s, st in wg["stages"].items()
+                 for k, v in st["run_filter"].items()},
               "data_train_kfnet": cli_kf["launches"],
               "eval_acceptance": ev["acceptance"]["first"]["launches"],
               "eval_flagship": ev["flagship_cli"]["batch"]["launches"],

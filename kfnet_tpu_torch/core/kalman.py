@@ -11,6 +11,7 @@ import torch
 
 # chi-square(3 dof) upper-tail critical values for the consistency test.
 CHI2_3DOF_P05 = 7.814728  # p = 0.05 (the paper's gate)
+CHI2_3DOF_P01 = 11.344867  # p = 0.01
 CHI2_3DOF_P50 = 2.365974  # p = 0.50: the calibrated serving gate
 
 
@@ -56,3 +57,11 @@ def kalman_update(x_prior: torch.Tensor, P_prior: torch.Tensor,
   x_post = torch.where(consistent, x_post, z)
   P_post = torch.where(consistent, P_post, V)
   return x_post, P_post, consistent
+
+
+def fuse_information_form(x_prior, P_prior, z, V):
+  """Information-form fusion: P = (P⁻·V)/(P⁻+V), x = P·(x⁻/P⁻ + z/V).
+  Algebraically ``kalman_update`` without the consistency branch."""
+  P = (P_prior * V) / (P_prior + V)
+  x = P * (x_prior / P_prior + z / V)
+  return x, P

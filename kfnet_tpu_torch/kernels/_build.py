@@ -29,8 +29,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 240
-# the host library is built on the host that runs it, for no particular
-# CPU (no -march=native), and links zlib for PNG's inflate
+# a host library is built on the host that runs it, for no particular
+# CPU (no -march=native); the data library links zlib for PNG's inflate
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
 HOST_LIBS = ("-lz",)
 
@@ -62,8 +62,8 @@ def find_cxx() -> str:
                      "data path's host library cannot be built")
 
 
-def host_command(cxx: str, sources, output: str) -> list:
-  return [cxx, *HOST_FLAGS, "-o", output, *sources, *HOST_LIBS]
+def host_command(cxx: str, sources, output: str, libs=HOST_LIBS) -> list:
+  return [cxx, *HOST_FLAGS, "-o", output, *sources, *libs]
 
 
 def cache_key(sources, flags=NVCC_FLAGS) -> str:
@@ -99,27 +99,28 @@ def build_dir() -> str:
   return path
 
 
-def _lib_path(name: str, sources, host: bool = False) -> tuple[list, str]:
+def _lib_path(name: str, sources, host: bool = False,
+              libs=HOST_LIBS) -> tuple[list, str]:
   """Absolute sources (names relative to ``CSRC``; absolute paths stay as
   they are) and the cached library's path."""
   sources = [os.path.join(CSRC, s) for s in sources]
-  flags = HOST_FLAGS + HOST_LIBS if host else NVCC_FLAGS
+  flags = HOST_FLAGS + tuple(libs) if host else NVCC_FLAGS
   return sources, os.path.join(build_dir(),
                                f"lib{name}-{cache_key(sources, flags)}.so")
 
 
-def build_libraries(specs, host: bool = False) -> None:
+def build_libraries(specs, host: bool = False, libs=HOST_LIBS) -> None:
   """Build every library of ``specs`` ((name, sources) pairs) that is not
   on disk yet, one compiler process each (``nvcc``, or the host's C++
-  compiler where ``host``), all started together."""
+  compiler where ``host``, linking ``libs``), all started together."""
   jobs = []
   try:
     for name, sources in specs:
-      srcs, lib_path = _lib_path(name, sources, host)
+      srcs, lib_path = _lib_path(name, sources, host, libs)
       if os.path.exists(lib_path):
         continue
       tmp = f"{lib_path}.{os.getpid()}.tmp"
-      cmd = (host_command(find_cxx(), srcs, tmp) if host
+      cmd = (host_command(find_cxx(), srcs, tmp, libs) if host
              else nvcc_command(find_nvcc(), srcs, tmp))
       jobs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True),
@@ -142,8 +143,10 @@ def build_libraries(specs, host: bool = False) -> None:
         proc.wait()
 
 
-def load_library(name: str, sources, host: bool = False) -> ctypes.CDLL:
+def load_library(name: str, sources, host: bool = False,
+                 libs=HOST_LIBS) -> ctypes.CDLL:
   """Build (once per source hash on disk) and load ``sources`` as
-  ``lib<name>-<hash>.so``. Callers keep the loaded library."""
-  build_libraries([(name, sources)], host)
-  return ctypes.CDLL(_lib_path(name, sources, host)[1])
+  ``lib<name>-<hash>.so``; a host library links ``libs``. Callers keep the
+  loaded library."""
+  build_libraries([(name, sources)], host, libs)
+  return ctypes.CDLL(_lib_path(name, sources, host, libs)[1])

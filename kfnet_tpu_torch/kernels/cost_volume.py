@@ -41,3 +41,20 @@ def correlate(prev_ext: torch.Tensor, feat_cur: torch.Tensor,
     win = rows.unfold(-2, 2 * r + 1, 1)                 # (..., h, w, C, 2r+1)
     slabs.append(torch.sum(cur32[..., None] * win, dim=-2) * scale)
   return torch.cat(slabs, dim=-1)
+
+
+def window_offsets(radius: int, device=None) -> torch.Tensor:
+  """((2r+1)², 2) float32 table of the (dx, dy) offsets in the cost
+  volume's channel order."""
+  r = radius
+  offs = [(float(dx), float(dy))
+          for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+  return torch.tensor(offs, dtype=torch.float32, device=device)
+
+
+def soft_argmax_flow(cv: torch.Tensor, radius: int,
+                     temperature: float = 1.0) -> torch.Tensor:
+  """The expected offset under softmax(cv / temperature) over the window:
+  (..., H, W, 2), differentiable."""
+  probs = torch.softmax(cv / temperature, dim=-1)
+  return probs @ window_offsets(radius, cv.device)

@@ -94,9 +94,9 @@ def flow_from_features(params, config: KFNetConfig, feat_prev, feat_cur):
 
 def _frames(net_config, fn, x: torch.Tensor) -> torch.Tensor:
   """``fn`` of one (..., C) map or frame, or of a (B, h, w, C) batch: at
-  once where the net runs PyTorch's convs, frame by frame where its convs
-  are kernels, which take one frame."""
-  if net_config.conv_impl == "xla" or x.dim() == 3:
+  once where the net runs PyTorch's convs (or Winograd's), frame by frame
+  where its convs are kernels, which take one frame."""
+  if net_config.conv_impl in ("xla", "winograd") or x.dim() == 3:
     return fn(x)
   return torch.stack([fn(f) for f in x.unbind(0)])
 

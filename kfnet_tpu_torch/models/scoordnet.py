@@ -9,8 +9,10 @@ a space-to-depth stem, the conv trunk, a conv head block and a float32
 ``conv_impl`` "xla" runs every conv through ``torch.nn.functional``;
 "pallas_3x3" sends a single frame's eligible convs to the ``conv3x3_same``
 kernel; "pallas_fused" (GroupNorm only) runs a single frame's 1/8-res trunk
-as a chain of ``conv3x3_gn_chain`` kernels (``_apply_fused_trunk``). A
-batch of frames always takes the serial "xla" path, as in the JAX package.
+as a chain of ``conv3x3_gn_chain`` kernels (``_apply_fused_trunk``);
+"winograd" sends every 3x3 stride-1 conv of an even map to
+``kernels/winograd.py``. A batch of frames takes the serial "xla" path
+under the kernel impls, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class SCoordNetConfig:
   compute_dtype: str = "bfloat16"
   norm: str = "group"  # "group" | "none" | "ws"
   stem_s2d: int = 2
-  conv_impl: str = "xla"  # "xla" | "pallas_3x3" | "pallas_fused"
+  conv_impl: str = "xla"  # "xla" | "pallas_3x3" | "pallas_fused" | "winograd"
 
   @property
   def dtype(self) -> torch.dtype:

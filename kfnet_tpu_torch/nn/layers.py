@@ -25,6 +25,14 @@ What is carried over exactly from the JAX package:
     rounding; every other conv takes the path above. The JAX package
     decides "single frame" by ``x.ndim == 3``; here the models build the
     layers for one frame (``frame_impl``) and the layer takes (1, C, H, W).
+  * ``impl="winograd"``: the JAX package's rule (3x3, stride 1, dilation
+    1, SAME, even H and W) sends a conv to ``kernels/winograd.py``
+    (F(2x2, 3x3), one rounding after the float32 bias); every other conv
+    takes the direct path.
+  * SAME and VALID padding, dilation, and the activations and pools of
+    the JAX module (``activation``, ``relu``, ``elu``, ``max_pool``,
+    ``avg_pool`` with SAME padding counted in the divisor,
+    ``upsample_nearest``).
 
 A layer also applies to a map split along W over a mesh (a
 ``parallel.mesh.Sharded`` (1, C, H, W) whose shards split the last axis
@@ -88,13 +96,10 @@ def standardize_weights(w, gain, eps: float = 1e-8):
 
 # "pallas_fused" is SCoordNet's fused trunk; the layers themselves run it
 # as "xla", as in the JAX package
-CONV_IMPLS = ("xla", "pallas_3x3", "pallas_fused")
+CONV_IMPLS = ("xla", "pallas_3x3", "pallas_fused", "winograd")
 
 
 def _check_impl(impl):
-  if impl == "winograd":
-    raise NotImplementedError(
-        "conv_impl='winograd' is not ported yet; use 'xla' or 'pallas_3x3'")
   if impl not in CONV_IMPLS:
     raise ValueError(f"conv_impl={impl!r}: expected one of {CONV_IMPLS}")
 
@@ -202,16 +207,22 @@ def _conv_sharded(x: Sharded, params, weights, out_ch, kernel, stride, cd,
   return Sharded(out, -1, x.devices)
 
 
-def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
+def conv(out_ch: int, kernel: int = 3, stride: int = 1, dilation: int = 1,
+         padding: str = "SAME", use_bias: bool = True,
          compute_dtype="bfloat16", impl: str = "xla",
          weight_standardize: bool = False) -> Layer:
-  """2D SAME convolution with the JAX package's padding and rounding.
+  """2D convolution with the JAX package's padding and rounding.
 
-  impl: "xla" (``torch.nn.functional``) or "pallas_3x3" (the
-  ``conv3x3_same`` kernel where ``_pallas_conv_eligible`` holds; the layer
-  then takes one frame)."""
+  padding: "SAME" (XLA's, per input size) or "VALID"; ``dilation`` spaces
+  the kernel's taps. impl: "xla" (``torch.nn.functional``), "pallas_3x3"
+  (the ``conv3x3_same`` kernel where ``_pallas_conv_eligible`` holds; the
+  layer then takes one frame) or "winograd" (``conv3x3_winograd`` on a
+  3x3 stride-1 undilated SAME conv of an even H and W)."""
   _check_impl(impl)
+  if padding not in ("SAME", "VALID"):
+    raise ValueError(f"padding={padding!r}: expected 'SAME' or 'VALID'")
   cd = as_dtype(compute_dtype)
+  eff = dilation * (kernel - 1) + 1  # the dilated kernel's extent
 
   def init(gen, in_shape, device):
     h, w, c = in_shape
@@ -223,7 +234,9 @@ def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
       params["gain"] = torch.ones((out_ch,), device=device)
     if use_bias:
       params["b"] = torch.zeros((out_ch,), device=device)
-    return params, (-(-h // stride), -(-w // stride), out_ch)
+    if padding == "SAME":
+      return params, (-(-h // stride), -(-w // stride), out_ch)
+    return params, ((h - eff) // stride + 1, (w - eff) // stride + 1, out_ch)
 
   def weights(params):
     if weight_standardize:
@@ -232,9 +245,12 @@ def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
 
   def apply(params, x):
     eligible = impl == "pallas_3x3" and _pallas_conv_eligible(
-        x.shape[-2], x.shape[-1], x.shape[-3], out_ch, kernel, stride, 1,
-        "SAME")
+        x.shape[-2], x.shape[-1], x.shape[-3], out_ch, kernel, stride,
+        dilation, padding)
     if isinstance(x, Sharded):
+      if dilation != 1 or padding != "SAME":
+        raise NotImplementedError("a W-sharded map takes undilated SAME "
+                                  "convs only")
       return _conv_sharded(x, params, weights, out_ch, kernel, stride, cd,
                            use_bias, eligible)
     wgt = weights(params)
@@ -244,15 +260,25 @@ def conv(out_ch: int, kernel: int = 3, stride: int = 1, use_bias: bool = True,
       y = conv3x3.conv3x3_same(frame_hwc(x.to(torch.bfloat16)), wgt,
                                params.get("b"), relu=False, out_dtype=cd)
       return y.permute(2, 0, 1)[None]
+    if (impl == "winograd" and kernel == 3 and stride == 1
+        and dilation == 1 and padding == "SAME"
+        and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0):
+      from kfnet_tpu_torch.kernels import winograd
+      return winograd.conv3x3_winograd(x, wgt, params.get("b"),
+                                       compute_dtype=cd)
     x = x.to(cd)
-    (t, b) = same_pads(x.shape[-2], kernel, stride)
-    (l, r) = same_pads(x.shape[-1], kernel, stride)
+    if padding == "SAME":
+      (t, b) = same_pads(x.shape[-2], eff, stride)
+      (l, r) = same_pads(x.shape[-1], eff, stride)
+    else:
+      t = b = l = r = 0
     if t == b and l == r:
       pad = (t, l)
     else:  # asymmetric (a stride-2 conv on an even input): pad explicitly
       x = F.pad(x, (l, r, t, b))
       pad = (0, 0)
-    y = F.conv2d(x, wgt.to(cd), stride=stride, padding=pad)
+    y = F.conv2d(x, wgt.to(cd), stride=stride, padding=pad,
+                 dilation=dilation)
     if use_bias:
       y = _bias_round(y, params, cd)
     return y
@@ -404,12 +430,62 @@ def sum_in_order(parts, device) -> torch.Tensor:
   return total
 
 
-def relu() -> Layer:
+def activation(fn: Callable) -> Layer:
+  """An elementwise ``fn`` that keeps the input's dtype (on a W-sharded
+  map, shard by shard)."""
+
   def apply(params, x):
-    return x.map(torch.relu) if isinstance(x, Sharded) else torch.relu(x)
+    return x.map(fn) if isinstance(x, Sharded) else fn(x)
 
   return Layer(init=lambda gen, in_shape, device: ({}, in_shape),
                apply=apply)
+
+
+def relu() -> Layer:
+  return activation(torch.relu)
+
+
+def elu() -> Layer:
+  return activation(F.elu)
+
+
+def _pool(window: int, stride: int, fill: float, reduce) -> Layer:
+  """A SAME-padded ``window`` pool of stride ``stride``: the pads hold
+  ``fill`` and take part in the window."""
+
+  def init(gen, in_shape, device):
+    h, w, c = in_shape
+    return {}, (-(-h // stride), -(-w // stride), c)
+
+  def apply(params, x):
+    t, b = same_pads(x.shape[-2], window, stride)
+    l, r = same_pads(x.shape[-1], window, stride)
+    xp = F.pad(x, (l, r, t, b), value=fill)
+    return reduce(xp, window, stride)
+
+  return Layer(init, apply)
+
+
+def max_pool(window: int = 2, stride: int = 2) -> Layer:
+  return _pool(window, stride, float("-inf"), F.max_pool2d)
+
+
+def avg_pool(window: int = 2, stride: int = 2) -> Layer:
+  """The window's sum over window² (zero pads counted), as the JAX
+  module's."""
+  return _pool(window, stride, 0.0, F.avg_pool2d)
+
+
+def upsample_nearest(factor: int = 2) -> Layer:
+  def init(gen, in_shape, device):
+    h, w, c = in_shape
+    return {}, (h * factor, w * factor, c)
+
+  def apply(params, x):
+    return x.repeat_interleave(factor, dim=-2).repeat_interleave(factor,
+                                                                 dim=-1)
+
+  return Layer(init, apply)
 
 
 def space_to_depth(factor: int = 2) -> Layer:

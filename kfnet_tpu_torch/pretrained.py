@@ -4,16 +4,22 @@
     cfg, params = pretrained.load()                 # on cuda
     xs, Ps, _ = filter.sequence.run_filter(params, cfg, images)
 
-The port reads ``.npz`` exports (``utils/checkpoint.py``), not orbax: the
-synthetic-scene set the JAX package ships under
-``artifacts/pretrained_synthetic`` is exported once to
+The port reads the JAX package's orbax exports under ``artifacts/``
+without orbax (``utils/checkpoint.py``, ``utils/ocdbt.py``), and its own
+``.npz`` exports. ``ASSETS`` is the synthetic-scene set, exported once to
 ``kfnet_tpu_torch/assets/pretrained_synthetic`` by
-``tools_port/export_pretrained_npz.py``, and a test holds every exported
-leaf equal to the orbax one. ``FULL_ASSETS`` holds the full-size flagship
-stage, ``load(FULL_ASSETS)``, exported the same way from
-``artifacts/pretrained_full``. Each stage carries its ``meta.json`` (scene,
-resolution, coordinate normalisation, serving point). The JAX package's
-layouts become the port's in ``convert.params_from_jax`` only.
+``tools_port/export_pretrained_npz.py`` (the ``.npz`` path's fixture; a
+test holds every leaf equal to the orbax one). The full-size 640x480
+releases are read straight from the repo's ``artifacts/``:
+``FULL_ASSETS`` (``artifacts/pretrained_full``: GroupNorm trunks) and
+``FULL_NONORM_ASSETS`` (``artifacts/pretrained_full_nonorm``: the
+reference-parity ``norm="none"`` trunks, served at their calibrated
+``serving_w_scale`` 2), each with ``stage3_sceneA`` and
+``stage3_outdoor_train``: ``load(FULL_NONORM_ASSETS, "outdoor_train")``.
+Each stage carries its ``meta.json`` (scene, resolution, coordinate
+normalisation, trunk norm, serving point), from which the config is
+built. The JAX package's layouts become the port's in
+``convert.params_from_jax`` only.
 """
 
 from __future__ import annotations
@@ -30,11 +36,12 @@ from kfnet_tpu_torch.utils import checkpoint as ckpt_lib
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 ASSETS = os.path.join(_HERE, "assets", "pretrained_synthetic")
-# the full-size flagship: stage3_sceneA of the JAX package's
-# pretrained_full release (a 23.6M-parameter GroupNorm SCoordNet and its
-# OFlowNet, 640x480), stored as bf16 bits and read back into float32
-# master weights
-FULL_ASSETS = os.path.join(_HERE, "assets", "pretrained_full")
+_ARTIFACTS = os.path.join(os.path.dirname(_HERE), "artifacts")
+# the full-size releases (a 23.6M-parameter SCoordNet and its OFlowNet,
+# 640x480), stored as bf16 and read back into float32 master weights;
+# stage3_sceneA of FULL_ASSETS is the flagship
+FULL_ASSETS = os.path.join(_ARTIFACTS, "pretrained_full")
+FULL_NONORM_ASSETS = os.path.join(_ARTIFACTS, "pretrained_full_nonorm")
 
 
 def _scoordnet_config(meta) -> scoordnet.SCoordNetConfig:

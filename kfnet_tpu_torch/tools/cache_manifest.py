@@ -18,7 +18,8 @@ tool makes the link auditable both ways:
     python -m kfnet_tpu_torch.tools.cache_manifest verify .protocol_cache/full \
         --manifest CACHE_MANIFEST_S1.json
 
-A stage is a directory holding ``params.npz`` (``checkpoint.has_params``).
+A stage is a directory holding ``params.npz`` or the JAX package's orbax
+export (``checkpoint.has_params``).
 Hashes are over the parameter VALUES — each leaf's path, dtype, shape and
 raw bytes, leaves in the JAX package's tree order (dict keys sorted, list
 items by index), each path spelled as ``jax.tree_util.keystr`` spells it
@@ -38,6 +39,7 @@ import os
 import numpy as np
 
 from kfnet_tpu_torch.utils import checkpoint as ckpt_lib
+from kfnet_tpu_torch.utils import ocdbt
 
 
 def _leaves(node, path=""):
@@ -55,12 +57,30 @@ def _leaves(node, path=""):
       yield from _leaves(v, f"{path}[{i}]")
 
 
+def _tree_leaves(tree, path=""):
+  """(keystr path, leaf) of each (dtype name, array) leaf of a read
+  orbax tree, in the JAX package's flattening order (Nones and empty
+  containers have none)."""
+  if isinstance(tree, dict):
+    for k in sorted(tree):
+      yield from _tree_leaves(tree[k], f"{path}[{k!r}]")
+  elif isinstance(tree, list):
+    for i, v in enumerate(tree):
+      yield from _tree_leaves(v, f"{path}[{i}]")
+  elif tree is not None:
+    yield path, tree
+
+
 def stage_leaves(stage_dir: str):
-  """The leaves of a stage's ``params.npz`` as (path, dtype name, array):
-  an array as stored (a bf16 leaf as its uint16 bits). Raises where the
-  file is missing or unreadable, or names arrays it lacks or lacks names
-  for arrays it holds."""
+  """The leaves of a stage's export (``params.npz``, else the orbax one)
+  as (path, dtype name, array): an array as stored (a bf16 leaf as its
+  uint16 bits). Raises where the export is missing or unreadable, or
+  names arrays it lacks or lacks names for arrays it holds."""
   p = os.path.join(stage_dir, ckpt_lib.PARAMS_FILE)
+  src = None if os.path.isfile(p) else ckpt_lib.orbax_dir(stage_dir)
+  if src is not None:
+    tree = ocdbt.read_tree(src, leaf=lambda name, a: (name, a))
+    return [(path, name, a) for path, (name, a) in _tree_leaves(tree)]
   with np.load(p, allow_pickle=False) as f:
     stored = {k: f[k] for k in f.files}
   tree = json.loads(str(stored.pop(ckpt_lib.TREE_KEY)))

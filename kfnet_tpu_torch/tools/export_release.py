@@ -6,16 +6,17 @@ weights at most.
 
     python -m kfnet_tpu_torch.tools.export_release \\
         --src /ckpts --stage stage3_sceneA \\
-        --out kfnet_tpu_torch/assets/pretrained_full/stage3_sceneA
+        --out /releases/stage3_sceneA
 
-Reads the stage's ``.npz`` export (``<src>/<stage>/params.npz`` and
-``meta.json``, ``utils/checkpoint.py``), casts each leaf to torch's
+Reads the stage's export (``<src>/<stage>/params.npz`` or the JAX
+package's orbax ``params/``, and ``meta.json``: ``utils/checkpoint.py``),
+casts each leaf to torch's
 bfloat16 (round to nearest even) and writes the release through
 ``utils/checkpoint.save_params`` in the same (the JAX package's) layouts,
 bf16 stored as its bit pattern. The meta is the stage's, plus ``params_dtype`` and
 ``release_source_stage`` (and a calibrated serving point where given), so
-that ``pretrained.load`` reads the release as it reads the committed
-flagship, cast back to the config's dtypes. Host only: nothing runs on a
+that ``pretrained.load`` reads the release as it reads the shipped
+flagship (``artifacts/pretrained_full``), cast back to the config's dtypes. Host only: nothing runs on a
 device.
 """
 

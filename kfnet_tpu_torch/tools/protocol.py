@@ -25,8 +25,9 @@ dataset.
 
 A stage's cache is ``<work_dir>/<stage>/params.npz`` + ``meta.json``
 (``utils/checkpoint.export_params``, the JAX package's layouts), found by
-``checkpoint.has_params``. The JAX package's orbax stage caches are not
-read. ``--device`` (``cuda`` unless given; raises without one) is the one
+``checkpoint.has_params``, which also finds the JAX package's orbax stage
+caches (``<stage>/params`` + ``meta.json``); both are read.
+``--device`` (``cuda`` unless given; raises without one) is the one
 flag the JAX tool lacks.
 """
 
@@ -138,8 +139,8 @@ def _cached_stage(work_dir, name, template, fit_fn, strict=False,
   if strict:
     raise RuntimeError(
         f"stage {name!r} is not cached in {work_dir!r} (no "
-        f"{ckpt_lib.PARAMS_FILE}; the JAX package's orbax stage caches are "
-        "not read) but strict_cache was requested (eval-only reuse, e.g. "
+        f"{ckpt_lib.PARAMS_FILE} or orbax export) but strict_cache was "
+        "requested (eval-only reuse, e.g. "
         "tools/calibrate.py) — a silent retrain here would evaluate "
         "different weights than the run being analyzed")
   params, m = fit_fn()

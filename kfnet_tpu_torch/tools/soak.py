@@ -21,11 +21,14 @@ device to an 8-number vector, read back once: one host sync a chunk.
 
     python -m kfnet_tpu_torch.tools.soak --frames 5000 --report soak.json
     python -m kfnet_tpu_torch.tools.soak \\
-        --pretrained kfnet_tpu_torch/assets/pretrained_full --frames 5000
+        --pretrained artifacts/pretrained_full --frames 5000
 
 ``--pretrained`` defaults to the shipped synthetic weights
-(``pretrained.ASSETS``); ``pretrained.FULL_ASSETS`` soaks the full-size
-flagship at 640x480. ``--device`` (``cuda`` unless given) is the port's own
+(``pretrained.ASSETS``); ``artifacts/pretrained_full``
+(``pretrained.FULL_ASSETS``) soaks the full-size GroupNorm stages at
+640x480 and ``artifacts/pretrained_full_nonorm``
+(``pretrained.FULL_NONORM_ASSETS``) the ``norm="none"`` ones, each with
+``--scene sceneA`` or ``outdoor_train``. ``--device`` (``cuda`` unless given) is the port's own
 flag. ``steady_state_fps`` is the streaming API's rate, renders included.
 """
 
@@ -241,8 +244,10 @@ def healthy(report: dict, consistent_drift: float = 0.15,
 def main(argv=None):
   p = argparse.ArgumentParser()
   p.add_argument("--pretrained", default=pretrained.ASSETS,
-                 help="export root (stage3_<scene> preferred); "
-                      "pretrained.FULL_ASSETS is the full-size flagship")
+                 help="export root (stage3_<scene> preferred): "
+                      "artifacts/pretrained_full (GroupNorm) and "
+                      "artifacts/pretrained_full_nonorm (norm none) hold "
+                      "the full-size stages of sceneA and outdoor_train")
   p.add_argument("--scene", default="sceneA")
   p.add_argument("--frames", type=int, default=5000)
   p.add_argument("--chunk", type=int, default=48)

@@ -1,5 +1,20 @@
-"""Exported weights as ``<stage>/params.npz`` + ``<stage>/meta.json`` (the
-read side of ``kfnet_tpu/utils/checkpoint.py``'s exports, without orbax).
+"""The JAX package's exports read without orbax, and the port's own
+``<stage>/params.npz`` + ``<stage>/meta.json`` (the read side of
+``kfnet_tpu/utils/checkpoint.py``).
+
+Layouts read, as the JAX module's docstring lists them:
+
+  1. ``<path>/params`` + ``<path>/meta.json``: an export;
+  2. ``<path>/export/params``: a training directory whose run wrote an
+     export;
+  3. ``<path>/<step>/...``: the orbax ``CheckpointManager`` layout of a
+     whole TrainState; ``load_params`` returns the latest step's
+     ``params`` subtree;
+  4. a bare ``StandardCheckpointer`` directory.
+
+Each orbax directory is read by ``utils/ocdbt.py`` (OCDBT, zarr v2 and a
+hand-written zstd decoder; no orbax, tensorstore or zstd package). The
+port writes ``.npz`` only:
 
 ``params.npz`` holds one array per leaf of the params tree, in the JAX
 package's layouts (NHWC / HWIO) and the dtypes it saved, under the leaf's
@@ -9,18 +24,18 @@ included, come back exactly as they were saved. numpy has no bfloat16: a
 bf16 leaf is stored as its uint16 bit pattern and marked so in the tree.
 
 ``save_params`` writes the format (the exporter calls it);
-``load_params_values`` reads it back to the same tree of numpy arrays
-(bf16 leaves as float32, which holds them exactly) and raises when an
-array the tree names is missing, or the file holds one it does not name.
-``convert.params_from_jax`` then makes the port's params of it;
-``export_params`` writes the port's params back in that form.
+``load_params_values`` reads either format back to the same tree of
+numpy arrays (bf16 leaves as float32, which holds them exactly) and
+raises when an array the tree names is missing, or the file holds one it
+does not name. ``convert.params_from_jax`` then makes the port's params
+of it; ``export_params`` writes the port's params back in that form.
 
 Training checkpoints (the write side of the JAX package's orbax
 ``Checkpointer``, without orbax): ``Checkpointer`` keeps a trainer's
 state, step, params and optimizer moments, as one ``params.npz`` per step
 directory (``<directory>/<step>/``) in the port's own layouts, and
-restores it against a template state. The JAX package's orbax training
-checkpoints are not read.
+restores it against a template state. The JAX package's training
+checkpoints are read by ``load_params`` (their params only).
 """
 
 from __future__ import annotations
@@ -32,6 +47,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from kfnet_tpu_torch.utils import ocdbt
 
 PARAMS_FILE = "params.npz"
 META_FILE = "meta.json"
@@ -88,32 +105,52 @@ def save_meta(directory: str, meta: dict):
 
 
 def load_meta(path: str) -> dict | None:
-  """``<path>/meta.json``, or None where there is none."""
-  p = os.path.join(path, META_FILE)
-  if not os.path.exists(p):
-    return None
-  with open(p) as f:
-    return json.load(f)
+  """``<path>/meta.json``, else ``<path>/export/meta.json``, else None."""
+  for d in (path, os.path.join(path, "export")):
+    p = os.path.join(d, META_FILE)
+    if os.path.exists(p):
+      with open(p) as f:
+        return json.load(f)
+  return None
+
+
+def orbax_dir(path: str) -> str | None:
+  """The orbax export of ``path``: ``<path>/params``, then
+  ``<path>/export/params``, then ``path`` itself; None where none
+  holds one."""
+  for sub in ("params", os.path.join("export", "params"), ""):
+    p = os.path.join(path, sub) if sub else path
+    if ocdbt.is_checkpoint(p):
+      return p
+  return None
 
 
 def has_params(path: str) -> bool:
-  return os.path.isfile(os.path.join(path, PARAMS_FILE))
-
-
-def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:
-  return (bits.astype(np.uint32) << 16).view(np.float32)
+  """True where ``path`` holds an export: ``params.npz`` or an orbax
+  one."""
+  return (os.path.isfile(os.path.join(path, PARAMS_FILE)) or
+          orbax_dir(path) is not None)
 
 
 def load_params_values(path: str, dtype=None):
-  """The params tree of ``<path>/params.npz`` with numpy leaves, in the
+  """The params tree of the export at ``path`` (``<path>/params.npz``,
+  else the orbax export ``orbax_dir`` finds) with numpy leaves, in the
   saved layouts; bf16 leaves come back as float32 (exactly), and every
   leaf is cast to ``dtype`` where one is given (a numpy dtype or its
   name; ``"bfloat16"`` is not one, numpy having no bf16). Raises
-  ``FileNotFoundError`` without the file and ``ValueError`` when a leaf
-  the tree names is missing or the file holds arrays it does not name."""
+  ``FileNotFoundError`` where there is neither, and ``ValueError`` when a
+  leaf the tree names is missing, the file holds arrays it does not name,
+  or an orbax file is corrupt or of a kind this reader does not know."""
   p = os.path.join(path, PARAMS_FILE)
   if not os.path.isfile(p):
-    raise FileNotFoundError(f"no {PARAMS_FILE} under {path!r}")
+    src = orbax_dir(path)
+    if src is None:
+      raise FileNotFoundError(f"no {PARAMS_FILE} or orbax export under "
+                              f"{path!r}")
+    if dtype is None:
+      return ocdbt.read_tree(src)
+    return ocdbt.read_tree(
+        src, leaf=lambda name, a: ocdbt.to_host(name, a).astype(dtype))
   with np.load(p, allow_pickle=False) as f:
     stored = {k: f[k] for k in f.files}
   if TREE_KEY not in stored:
@@ -128,7 +165,7 @@ def load_params_values(path: str, dtype=None):
         raise ValueError(f"{p}: leaf {key!r} is missing")
       named.add(key)
       a = stored[key]
-      a = _bf16_to_f32(a) if node["dtype"] == "bfloat16" else a
+      a = ocdbt.to_host(node["dtype"], a)
       return a if dtype is None else a.astype(dtype)
     (kind, body), = node.items()
     if kind == "dict":
@@ -141,6 +178,48 @@ def load_params_values(path: str, dtype=None):
   if extra:
     raise ValueError(f"{p}: arrays the tree does not name: {extra[:8]}")
   return params
+
+
+def _manager_steps(path: str) -> list:
+  try:
+    return sorted(int(d) for d in os.listdir(path) if d.isdigit())
+  except FileNotFoundError:
+    return []
+
+
+def load_params(path: str, template=None):
+  """The params of any layout in the module docstring, with numpy leaves
+  in the saved layouts (bf16 as float32). Of a ``CheckpointManager``
+  directory, the latest step's ``params`` subtree. Where ``template`` is
+  given (a tree of tensors or arrays), the params come back in its
+  structure, devices and dtypes, and a tree of another structure or
+  shape raises ``ValueError``."""
+  path = os.path.abspath(path)
+  if has_params(path):
+    return _restored(load_params_values(path), template, path)
+  steps = _manager_steps(path)
+  if not steps:
+    raise FileNotFoundError(f"no export or orbax checkpoint at {path!r}")
+  step = os.path.join(path, str(steps[-1]))
+  item = next((p for p in (os.path.join(step, "default"), step)
+               if ocdbt.is_checkpoint(p)), None)
+  if item is None:
+    raise FileNotFoundError(f"step {steps[-1]} of {path!r} holds no orbax "
+                            f"checkpoint")
+  state = ocdbt.read_tree(item)
+  if not isinstance(state, dict) or "params" not in state:
+    raise ValueError(f"step {steps[-1]} of {path!r} has no params")
+  return _restored(state["params"], template, f"{path} (step {steps[-1]})")
+
+
+def _restored(params, template, where):
+  if template is None:
+    return params
+  try:
+    return _like(template, params, "")
+  except ValueError as e:
+    raise ValueError(f"checkpoint params at {where} do not match the "
+                     f"template: {e}") from None
 
 
 def export_params(directory: str, params, meta: dict | None = None):
@@ -188,10 +267,18 @@ def _like(template, saved, path):
                        f"expected")
     return type(template)(_like(t, s, f"{path}/{i}")
                           for i, (t, s) in enumerate(zip(template, saved)))
-  if isinstance(template, torch.Tensor):
+  if template is None or saved is None:
+    if template is not None or saved is not None:
+      raise ValueError(f"checkpoint at {where}: None against a leaf")
+    return None
+  if isinstance(template, (torch.Tensor, np.ndarray)):
+    if not isinstance(saved, np.ndarray):
+      raise ValueError(f"checkpoint at {where}: an array expected")
     if tuple(saved.shape) != tuple(template.shape):
       raise ValueError(f"checkpoint at {where}: shape {tuple(saved.shape)}, "
                        f"expected {tuple(template.shape)}")
+    if isinstance(template, np.ndarray):
+      return saved.astype(template.dtype)
     return torch.from_numpy(np.ascontiguousarray(saved)).to(
         device=template.device, dtype=template.dtype)
   return type(template)(saved.item())

@@ -975,9 +975,10 @@ def test_fit_on_device_keeps_its_data_on_the_card(cuda):
 
 
 def test_full_size_weights_load_and_measure_on_card(cuda):
-  """The committed full-size flagship export on the card: float32 master
-  weights there, and one 640x480 measurement finite with positive
-  variances."""
+  """The full-size flagship (artifacts/pretrained_full, the JAX package's
+  orbax export, read by the port's own reader on the card's host) on the
+  card: float32 master weights there, and one 640x480 measurement finite
+  with positive variances."""
   from kfnet_tpu_torch import pretrained
   cfg, params = pretrained.load(pretrained.FULL_ASSETS, device=cuda)
   leaves = L.tree_leaves(params)
@@ -1146,3 +1147,58 @@ def test_fit_on_a_repeated_card_mesh(cuda):
     a, b = a.cpu().numpy(), b.cpu().numpy()
     np.testing.assert_allclose(b, a, rtol=2e-3,
                                atol=1e-5 + 5e-4 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_winograd_conv_on_card_and_in_a_graph(cuda, dtype):
+  """kernels/winograd.py on the card (bf16: the bmm with a float32
+  output) against cuDNN's direct conv at tests/test_winograd.py's bounds
+  (float32 1e-4; bf16 0.015 of the largest |y|), with a bias and a batch;
+  the same call captured in a CUDA graph and replayed gives its bits."""
+  import torch.nn.functional as F
+  from kfnet_tpu_torch.kernels import winograd
+  gen = torch.Generator().manual_seed(3)
+  x = torch.randn((2, 64, 60, 80), generator=gen).to(cuda)
+  w = (torch.randn((96, 64, 3, 3), generator=gen) / 24).to(cuda)
+  b = torch.randn((96,), generator=gen).to(cuda)
+  y = winograd.conv3x3_winograd(x, w, b, compute_dtype=dtype)
+  ref = F.conv2d(x.to(dtype), w.to(dtype), padding=1)
+  ref = (ref.float() + b[:, None, None]).to(dtype).float()
+  err = (y.float() - ref).abs().max().item()
+  scale = ref.abs().max().item()
+  assert err <= (1e-4 * max(scale, 1.0) if dtype == torch.float32
+                 else 0.015 * scale), (err, scale)
+  stream = torch.cuda.Stream()
+  with torch.cuda.stream(stream):
+    winograd.conv3x3_winograd(x, w, b, compute_dtype=dtype)  # warm up
+  torch.cuda.current_stream().wait_stream(stream)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = winograd.conv3x3_winograd(x, w, b, compute_dtype=dtype)
+  graph.replay()
+  torch.cuda.synchronize()
+  assert torch.equal(out, y)
+
+
+def test_winograd_gradients_on_card(cuda):
+  """Gradients through the bf16 route on the card (the contraction's
+  operands upcast where a gradient is needed) against autograd through
+  the float32 direct conv, at tests/test_winograd.py's rtol 1e-3 / atol
+  1e-4 in float32 and finite in bf16."""
+  import torch.nn.functional as F
+  from kfnet_tpu_torch.kernels import winograd
+  gen = torch.Generator().manual_seed(4)
+  x = torch.randn((1, 4, 6, 8), generator=gen).to(cuda)
+  w0 = torch.randn((4, 4, 3, 3), generator=gen).to(cuda)
+  grads = []
+  for fn in (lambda w: winograd.conv3x3_winograd(
+                 x, w, compute_dtype=torch.float32),
+             lambda w: F.conv2d(x, w, padding=1)):
+    w = w0.clone().requires_grad_(True)
+    torch.sum(torch.sin(fn(w))).backward()
+    grads.append(w.grad)
+  torch.testing.assert_close(grads[0], grads[1], rtol=1e-3, atol=1e-4)
+  w = w0.clone().requires_grad_(True)
+  winograd.conv3x3_winograd(x, w).float().sum().backward()
+  assert torch.isfinite(w.grad).all()
+

@@ -255,7 +255,8 @@ def test_eval_main_jax_and_port_clis_agree(tmp_path, tiny, tiny_load,
 
 
 def test_eval_main_reads_the_committed_flagship(tmp_path, monkeypatch):
-  """--kfnet_ckpt of the committed full-size bf16 release: the meta's
+  """--kfnet_ckpt of the committed full-size bf16 release (the JAX
+  package's orbax export under artifacts/pretrained_full): the meta's
   coordinate normalisation and trunk norm, the config and float32 weights
   pretrained.load(FULL_ASSETS) gives; the CLI's dumped maps equal
   evaluate_sequence's with those weights on the same loaded frames."""

@@ -453,3 +453,27 @@ def test_step_function_mask_has_no_grad_and_forward_is_the_hook(monkeypatch):
   (g_c,) = torch.autograd.grad(out[5].sum(), [ts[1]])
   np.testing.assert_array_equal(g_c[..., :3].numpy(), 1.0)
   assert torch.equal(g_c[..., 3], torch.zeros_like(g_c[..., 3]))
+
+
+def test_information_form_and_p01_gate_match_jax():
+  """fuse_information_form against the JAX package's (and against the
+  Kalman update's posterior where every pixel is consistent), and the
+  p = 0.01 χ² constant."""
+  assert tkalman.CHI2_3DOF_P01 == jkalman.CHI2_3DOF_P01
+  rng = np.random.default_rng(11)
+  xp = rng.normal(size=(5, 6, 3)).astype(np.float32)
+  z = (xp + 0.1 * rng.normal(size=(5, 6, 3))).astype(np.float32)
+  Pp = rng.uniform(0.01, 2.0, (5, 6, 1)).astype(np.float32)
+  V = rng.uniform(0.01, 2.0, (5, 6, 1)).astype(np.float32)
+  jx, jP = jkalman.fuse_information_form(*map(jnp.asarray, (xp, Pp, z, V)))
+  tx, tP = tkalman.fuse_information_form(
+      *map(torch.from_numpy, (xp, Pp, z, V)))
+  np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=5e-4,
+                             atol=5e-5)
+  np.testing.assert_allclose(tP.numpy(), np.asarray(jP), rtol=5e-4,
+                             atol=5e-5)
+  kx, kP, ok = tkalman.kalman_update(*map(torch.from_numpy, (xp, Pp, z, V)),
+                                     threshold=1e9)
+  assert bool(ok.all())
+  np.testing.assert_allclose(tx.numpy(), kx.numpy(), rtol=1e-5, atol=1e-5)
+  np.testing.assert_array_equal(tP.numpy(), kP.numpy())

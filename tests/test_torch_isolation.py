@@ -1,5 +1,6 @@
 """The port stands alone: kfnet_tpu_torch and chip_smoke.py import nothing
-of JAX or of the JAX package (nor orbax, tensorstore, cv2 or PIL) and load
+of JAX or of the JAX package (nor orbax, tensorstore, zstandard, cv2 or
+PIL: the card's machine has none of them) and load
 nothing of its native/ library, the kernel build carries the flags it
 must, and chip_smoke.py refuses to run, printing no verdict, where there
 is no CUDA device or no port beside it. No nvcc or GPU is needed here.
@@ -20,7 +21,7 @@ from kfnet_tpu_torch.kernels import _build
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "kfnet_tpu", "orbax", "optax", "tensorstore",
-             "cv2", "PIL")
+             "zstandard", "cv2", "PIL")
 PORT_FILES = sorted((ROOT / "kfnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -70,6 +71,21 @@ def test_host_build_flags():
     assert flag in cmd
   assert not any("march" in c for c in cmd)
   assert cmd[cmd.index("-o") + 1] == "out.so"
+
+
+def test_checkpoint_reader_is_its_own_library_on_libc_alone():
+  """The zstd decoder builds as kfnet_ckpt from the port's source and
+  links no library (no -lz, no -lzstd), apart from the data path's."""
+  from kfnet_tpu_torch.data import native_io
+  from kfnet_tpu_torch.utils import ocdbt
+  assert ocdbt.LIBRARY != native_io.LIBRARY
+  assert all(pathlib.Path(s).resolve().is_relative_to(ROOT / "kfnet_tpu_torch")
+             for s in ocdbt.SOURCES)
+  cmd = _build.host_command("g++", list(ocdbt.SOURCES), "out.so", libs=())
+  assert not any(c.startswith("-l") for c in cmd)
+  loaded = pathlib.Path(ocdbt.load_library()._name).resolve()
+  assert loaded.name.startswith(f"lib{ocdbt.LIBRARY}-")
+  assert loaded.parent == pathlib.Path(_build.build_dir()).resolve()
 
 
 def _imported_modules(path):
@@ -139,6 +155,9 @@ def test_package_import_leaves_jax_out():
           "import kfnet_tpu_torch.parallel;"
           "import kfnet_tpu_torch.parallel.mesh;"
           "import kfnet_tpu_torch.parallel.spatial;"
+          "import kfnet_tpu_torch.utils.ocdbt;"
+          "import kfnet_tpu_torch.kernels.winograd;"
+          "import kfnet_tpu_torch.tools.cache_manifest;"
           f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules];"
           "print(bad); sys.exit(1 if bad else 0)")
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -153,6 +153,74 @@ def test_conv_block_matches(norm):
 
 
 def test_unported_conv_impl_raises():
-  # "pallas_3x3" and "pallas_fused" are ported; Winograd is not yet
-  with pytest.raises(NotImplementedError):
-    tL.conv(8, 3, 1, impl="winograd")
+  # every impl of the JAX package is ported ("winograd" too): a name
+  # outside them raises
+  with pytest.raises(ValueError, match="conv_impl"):
+    tL.conv(8, 3, 1, impl="direct")
+
+
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+@pytest.mark.parametrize("dilation", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_dilation_and_valid_padding_match_lax(padding, dilation, stride):
+  shape = (11, 12, 5)
+  jl = jL.conv(6, 3, stride, dilation, padding, compute_dtype=jnp.float32)
+  tl = tL.conv(6, 3, stride, dilation, padding, compute_dtype="float32")
+  got, want = _pair(jl, tl, shape, seed=20 + dilation + stride, bias=True)
+  assert got.shape == want.shape
+  assert tl.init(torch.Generator(), shape, "meta")[1] == jl.init(
+      jax.random.key(0), shape)[1]
+  np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("relu", jnp.float32), ("elu", jnp.float32), ("elu", jnp.bfloat16),
+    ("tanh", jnp.float32)])
+def test_activations_match(name, dtype):
+  if name == "tanh":  # the general form: any elementwise function
+    jl, tl = jL.activation(jnp.tanh), tL.activation(torch.tanh)
+  else:
+    jl, tl = getattr(jL, name)(), getattr(tL, name)()
+  rng = np.random.default_rng(7)
+  x = (rng.normal(size=(2, 6, 5, 4)) * 3).astype(np.float32)
+  want = jl.apply({}, jnp.asarray(x, dtype))
+  got = tl.apply({}, _nhwc_to_torch(x).to(
+      torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32))
+  assert str(got.dtype).endswith(jnp.dtype(dtype).name)  # dtype kept
+  tol = BF16_RTOL if dtype == jnp.bfloat16 else 1e-6
+  np.testing.assert_allclose(_torch_to_nhwc(got),
+                             np.asarray(want, np.float32), rtol=tol,
+                             atol=tol)
+  assert tl.init(torch.Generator(), (6, 5, 4), "cpu") == ({}, (6, 5, 4))
+
+
+@pytest.mark.parametrize("kind", ["max_pool", "avg_pool"])
+@pytest.mark.parametrize("window,stride,size", [
+    (2, 2, (8, 10)), (2, 2, (7, 9)), (3, 2, (9, 8)), (3, 1, (5, 6))])
+def test_pools_match(kind, window, stride, size):
+  jl = getattr(jL, kind)(window, stride)
+  tl = getattr(tL, kind)(window, stride)
+  got, want = _pair(jl, tl, size + (3,), seed=window + stride + size[0])
+  assert got.shape == want.shape
+  assert tl.init(torch.Generator(), size + (3,), "cpu")[1] == jl.init(
+      jax.random.key(0), size + (3,))[1]
+  np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("factor", [2, 3])
+def test_upsample_nearest_matches(factor):
+  got, want = _pair(jL.upsample_nearest(factor), tL.upsample_nearest(factor),
+                    (3, 4, 2), seed=factor)
+  np.testing.assert_array_equal(got, want)
+  assert tL.upsample_nearest(factor).init(None, (3, 4, 2), "cpu")[1] == (
+      3 * factor, 4 * factor, 2)
+
+
+def test_nn_exports_the_jax_names():
+  import kfnet_tpu.nn as jnn
+  import kfnet_tpu_torch.nn as tnn
+  names = ("Layer", "conv", "conv_transpose", "conv_block", "group_norm",
+           "relu", "elu", "max_pool", "avg_pool", "upsample_nearest",
+           "serial", "activation", "param_count")
+  for n in names:
+    assert hasattr(jnn, n) and hasattr(tnn, n), n

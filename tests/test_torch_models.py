@@ -315,3 +315,17 @@ def test_filter_step_batched_matches_single_and_jax_vmap():
     close(tout[3][k], jout[3][k])
   np.testing.assert_array_equal(tout[3]["consistent"].numpy(),
                                 np.asarray(jout[3]["consistent"]))
+
+
+@pytest.mark.parametrize("radius", [1, 2, 4])
+def test_window_offsets_and_soft_argmax_flow_match_jax(radius):
+  np.testing.assert_array_equal(tcv.window_offsets(radius).numpy(),
+                                np.asarray(jcv.window_offsets(radius)))
+  rng = np.random.default_rng(radius)
+  cv = rng.normal(size=(2, 5, 6, (2 * radius + 1) ** 2)).astype(np.float32)
+  for t in (1.0, 0.3):
+    want = jcv.soft_argmax_flow(jnp.asarray(cv), radius, temperature=t)
+    got = tcv.soft_argmax_flow(torch.from_numpy(cv), radius, temperature=t)
+    assert got.shape == (2, 5, 6, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4,
+                               atol=5e-5)

@@ -1,12 +1,13 @@
-"""The full-size shipped weights in the port: the committed ``.npz`` export
-under kfnet_tpu_torch/assets/pretrained_full/stage3_sceneA against the
-orbax release under artifacts/pretrained_full, ``pretrained.load`` of it
-against the JAX package's (the spec of
-tests/test_pretrained_artifact.py:82-116), and the float32 filter over it.
+"""The four full-size shipped stages in the port, read from the JAX
+package's orbax releases under artifacts/ by the port's own reader
+(tests/test_torch_ocdbt.py holds every leaf of them bit for bit against
+the JAX loader's): ``pretrained.load`` of each against the JAX package's
+(the spec of tests/test_pretrained_artifact.py:82-116: norm, the serving
+w_scale 16 or 2, coordinate normalisation), and the float32 filter over
+each.
 
-Tolerances: the export leaf for leaf, bit for bit (the same bf16 values);
-the loaded config exactly; run_filter with both nets in float32 at the
-goldens' rtol 5e-4 / atol 5e-5 (tests/test_goldens.py:61).
+Tolerances: the loaded config exactly; run_filter with both nets in
+float32 at the goldens' rtol 5e-4 / atol 5e-5 (tests/test_goldens.py:61).
 """
 
 import dataclasses
@@ -51,24 +52,6 @@ def _leaves(tree, path=""):
     return [x for i, v in enumerate(tree)
             for x in _leaves(v, f"{path}/{i}")]
   return [(path, tree)]
-
-
-def test_export_equals_orbax_bit_for_bit():
-  want = jckpt.load_params_values(os.path.join(ORBAX, STAGE))
-  got = tckpt.load_params_values(os.path.join(tpre.FULL_ASSETS, STAGE))
-  w, g = _leaves(jax.tree_util.tree_map(np.asarray, want)), _leaves(got)
-  assert [p for p, _ in g] == [p for p, _ in w]
-  for (path, gv), (_, wv) in zip(g, w):
-    assert wv.dtype.name == "bfloat16", path
-    assert gv.dtype == np.float32 and gv.shape == wv.shape, path
-    # the bf16 bits, compared as the float32 that holds them exactly
-    np.testing.assert_array_equal(gv.view(np.uint32),
-                                  wv.astype(np.float32).view(np.uint32),
-                                  err_msg=path)
-  assert tckpt.load_meta(os.path.join(tpre.FULL_ASSETS, STAGE)) == \
-      jckpt.load_meta(os.path.join(ORBAX, STAGE))
-  with np.load(os.path.join(tpre.FULL_ASSETS, STAGE, "params.npz")) as f:
-    assert f["scoordnet/0/0/w"].dtype == np.uint16  # stored as bf16 bits
 
 
 def test_load_full_matches_jax_config_and_params(jax_full, port_full):
@@ -124,3 +107,69 @@ def test_run_filter_float32_matches_jax(jax_full, port_full):
   assert txs.shape == (3, 12, 16, 3)
   np.testing.assert_allclose(txs.numpy(), np.asarray(jxs), **TOL)
   np.testing.assert_allclose(tPs.numpy(), np.asarray(jPs), **TOL)
+
+
+# the three other stages: (export root, scene) -> norm, serving w_scale
+OTHERS = {("pretrained_full_nonorm", "sceneA"): ("none", 2.0),
+          ("pretrained_full", "outdoor_train"): ("group", 16.0),
+          ("pretrained_full_nonorm", "outdoor_train"): ("none", 2.0)}
+
+
+@pytest.fixture(scope="module", params=sorted(OTHERS),
+                ids=lambda k: f"{k[0]}-{k[1]}")
+def other_stage(request):
+  """JAX's config of the stage (pretrained.load's: the meta's nets and
+  serving point) and its params cast to the float32 masters, as
+  pretrained.load returns them, without the template's init; the port's
+  pretrained.load."""
+  from kfnet_tpu.models import kfnet as jkfnet
+  name, scene = request.param
+  root = os.path.join(ROOT, "artifacts", name)
+  stage = os.path.join(root, f"stage3_{scene}")
+  meta = jckpt.load_meta(stage)
+  jcfg = jpre._apply_serving(jkfnet.KFNetConfig(
+      scoordnet=jpre._scoordnet_config(meta),
+      oflownet=jpre._oflownet_config(meta)), meta)
+  jparams = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float32),
+                                   jckpt.load_params_values(stage))
+  return (request.param, (jcfg, jparams),
+          tpre.load(root, scene=scene, device="cpu"))
+
+
+def test_other_stages_load_as_jax_does(other_stage):
+  (name, scene), (jcfg, jparams), (tcfg, tparams) = other_stage
+  norm, w_scale = OTHERS[(name, scene)]
+  assert tcfg.scoordnet.norm == jcfg.scoordnet.norm == norm
+  assert tcfg.w_scale == jcfg.w_scale == w_scale
+  assert dataclasses.asdict(tcfg.scoordnet) == dataclasses.asdict(
+      jcfg.scoordnet)
+  assert dataclasses.asdict(tcfg.oflownet) == dataclasses.asdict(
+      jcfg.oflownet)
+  for f in ("chi2_threshold", "invalid_cov", "adaptive_alpha_max"):
+    assert getattr(tcfg, f) == getattr(jcfg, f), f
+  assert all(p.dtype == torch.float32 for p in L.tree_leaves(tparams))
+  want = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+  for (path, g), (_, w) in zip(_leaves(tparams), _leaves(want)):
+    assert torch.equal(g, w), path
+
+
+def test_other_stages_run_filter_float32_matches_jax(other_stage):
+  """Both nets in float32 in both packages, 3 frames of the stage's
+  scene at 96x128 (its row of the protocol table, trajectory seed + 99)."""
+  (name, scene), (jcfg, jparams), (tcfg, tparams) = other_stage
+  f32 = lambda c: dataclasses.replace(
+      c, scoordnet=dataclasses.replace(c.scoordnet, compute_dtype="float32"),
+      oflownet=dataclasses.replace(c.oflownet, compute_dtype="float32"))
+  jcfg, tcfg = f32(jcfg), f32(tcfg)
+  from kfnet_tpu.tools import protocol as jprotocol
+  spec = {s.name: s for s in jprotocol.DEFAULT_SCENES}[scene]
+  data = jsyn.make_sequence(3, height=96, width=128, seed=spec.seed,
+                            scale=spec.scale, traj_seed=spec.seed + 99,
+                            duration=3 / 48.0)
+  images = np.asarray(data["images"])
+  jxs, jPs, _ = jax.jit(lambda p, im: jseq.run_filter(p, jcfg, im))(
+      jparams, jnp.asarray(images))
+  txs, tPs, _ = tseq.run_filter(tparams, tcfg, images)
+  np.testing.assert_allclose(txs.numpy(), np.asarray(jxs), **TOL)
+  np.testing.assert_allclose(tPs.numpy(), np.asarray(jPs), **TOL)
+

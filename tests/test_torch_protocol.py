@@ -224,6 +224,24 @@ def test_strict_rerun_trains_nothing_and_loads_the_same_params(caches):
     assert all(torch.equal(x, y) for x, y in zip(la, lb)), name
 
 
+def test_strict_run_reads_the_jax_packages_cache(caches):
+  """The JAX package's orbax stage cache, read by the port's strict run:
+  no optimizer step, and each scene's joint params those JAX trained
+  (bit for bit, in the port's layouts)."""
+  patch, calls = _counting_updates()
+  with patch:
+    got = protocol.prepare_stages(work_dir=caches["jdir"], scenes=SCENES,
+                                  strict_cache=True, device="cpu", **MINI)
+  assert not calls
+  jjoint = caches["jout"][3]
+  for name in ("sceneA", "heldout"):
+    want = convert.params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jjoint[name][1]))
+    lg, lw = L.tree_leaves(got[3][name][1]), L.tree_leaves(want)
+    assert len(lg) == len(lw)
+    assert all(torch.equal(a, b) for a, b in zip(lg, lw)), name
+
+
 def test_strict_cache_raises_on_a_miss(tmp_path):
   with pytest.raises(RuntimeError, match="not cached"):
     protocol.prepare_stages(work_dir=str(tmp_path), scenes=SCENES[:1],

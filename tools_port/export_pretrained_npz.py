@@ -3,13 +3,13 @@
 
     JAX_PLATFORMS=cpu python tools_port/export_pretrained_npz.py
     JAX_PLATFORMS=cpu python tools_port/export_pretrained_npz.py \
-        --src artifacts/pretrained_full \
-        --dst kfnet_tpu_torch/assets/pretrained_full \
+        --src artifacts/pretrained_full --dst /exports \
         --stages stage3_sceneA --compressed
 
-The first writes the synthetic set (the defaults), the second the
-full-size flagship stage the port ships (bf16 leaves as their uint16
-bits, deflated: about 42 MB).
+The first writes the synthetic set (the defaults): the ``.npz`` path's
+fixture. The port reads the full-size stages from ``artifacts/``
+itself; the second form writes one as ``.npz`` (bf16 leaves as their
+uint16 bits, deflated: about 42 MB) where that is wanted.
 
 Runs on the CPU with JAX. Each stage is read with
 ``kfnet_tpu.utils.checkpoint.load_params_values`` and ``load_meta`` and
@@ -32,9 +32,6 @@ sys.path.insert(0, ROOT)
 SRC = os.path.join(ROOT, "artifacts", "pretrained_synthetic")
 DST = os.path.join(ROOT, "kfnet_tpu_torch", "assets", "pretrained_synthetic")
 STAGES = ("stage3_sceneA", "stage1_sceneA", "stage2_indoor")
-FULL_SRC = os.path.join(ROOT, "artifacts", "pretrained_full")
-FULL_DST = os.path.join(ROOT, "kfnet_tpu_torch", "assets", "pretrained_full")
-FULL_STAGES = ("stage3_sceneA",)
 
 
 def export(src: str = SRC, dst: str = DST, stages=STAGES,
