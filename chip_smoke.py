@@ -348,6 +348,18 @@ Phases, one line each, with their seconds:
      640x480 7-Scenes fixture (the port's fixture writer); eval.main on the
      committed flagship over its test split with --dump_dir, and
      visualize on that dump (3 PNGs a frame at 480x640);
+  16. graft_entry: the port's root entry points (kfnet_tpu_torch/
+     graft_entry.py, the counterpart of __graft_entry__.py). entry()'s
+     params and frames on the card, its config with the fused kernel on;
+     its step (first_step, then filter_step, at 480x640) against the
+     same step with use_fused_kernel=False on the same params and frames, x1, P1 and flow at rtol = atol = TOL_PATH,
+     finite, P1 > 0; 1 fused launch and no conv-kernel launch a call,
+     eager and as one captured CUDA graph (counted under replay); the
+     graph against the eager call at GRAPH_TOL; the median ms of
+     GRAFT_CALLS calls of each (CUDA events) beside nvidia-smi's name and
+     power limit; dryrun_multichip(GRAFT_DRYRUN_ENTRIES) on cuda:0 named
+     that many times (its data-parallel joint step, width-sharded filter
+     and fleet on the composition: no kernel launch), with its seconds;
 Imports only the standard library, numpy, torch and kfnet_tpu_torch; reads
 the shipped full-size stages under artifacts/ (the JAX package's orbax
 exports) through kfnet_tpu_torch's own reader; writes only the kernel build directory, and the
@@ -405,8 +417,8 @@ FLEET_RESET = 3             # the tick at which slot 2 starts over
 # the batched pose solve against each frame's solve on the same indices,
 # T_wc: rtol, and an atol for its entries near 0
 POSE_RTOL, POSE_ATOL = 1e-4, 1e-6
-FORBIDDEN = ("jax", "kfnet_tpu", "orbax", "optax", "tensorstore", "zstandard",
-             "cv2", "PIL")
+FORBIDDEN = ("jax", "kfnet_tpu", "__graft_entry__", "orbax", "optax",
+             "tensorstore", "zstandard", "cv2", "PIL")
 # phase "train" (the stages at full width, 640x480, on a rendered sequence)
 TRAIN_FRAMES = 16           # frames of the training sequence
 TRAIN_B, TRAIN_STEPS, TRAIN_CHUNK = 8, 6, 3  # stages 1 and 2
@@ -496,6 +508,9 @@ STUDY_CONV_T, STUDY_PROFILE_T, STUDY_TURNS = 8, 8, 5
 STUDY_FIX_TRAIN, STUDY_FIX_TEST = 4, 4
 FILTER_FPS_RUNS = 1 + 3 * 3            # eval/benchmark.filter_fps's calls
 PT_FLEET_TICKS = 1 + (1 + 5 * 3) + (2 + 5 * 16)
+# phase "graft_entry": the timed calls of entry()'s step, eager and
+# graphed; graphed against eager (rtol, atol); the dry run's entries
+GRAFT_CALLS, GRAPH_TOL, GRAFT_DRYRUN_ENTRIES = 20, 1e-3, 4
 
 
 def say(phase, t0, **fields):
@@ -3139,6 +3154,121 @@ def check_study(st):
     raise AssertionError(f"study labels / visualize: {h}")
 
 
+def median_call_ms(fn, n):
+  """Median ms of n calls of ``fn``, each between two CUDA events, after
+  one warm-up: for an eager step the events also span the device's waits
+  on the host's enqueue."""
+  import numpy as np
+  import torch
+  fn()
+  times = []
+  for _ in range(n):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  return float(np.median(times))
+
+
+def outputs_gap(got, want, tol):
+  """(largest |difference| of each of x1, P1 and flow, all within rtol =
+  atol = tol) of two entry() steps' outputs."""
+  import torch
+  gap = {k: (g - w).abs().max().item()
+         for k, g, w in zip(("x1", "P1", "flow"), got, want)}
+  return {**gap, "bit_equal": all(torch.equal(g, w)
+                                  for g, w in zip(got, want)),
+          "held": all(torch.allclose(g, w, rtol=tol, atol=tol)
+                      for g, w in zip(got, want))}
+
+
+def graft_entry_phase(dev, wrappers):
+  """Phase "graft_entry" (module docstring, phase 16): the port's root
+  entry points on the card. Returns (the phase's fields, the launches of its
+  paths by name); ``check_graft_entry`` asserts."""
+  import torch
+  from kfnet_tpu_torch import graft_entry
+  from kfnet_tpu_torch.kernels import launches as launches_lib
+  from kfnet_tpu_torch.nn import layers as L
+  fn, args = graft_entry.entry()
+  params, img_prev, img_cur = args
+  tensors = L.tree_leaves(params) + [img_prev, img_cur]
+  out = {"config_use_fused_kernel": fn.config.use_fused_kernel,
+         "on_card": all(t.device.type == "cuda" for t in tensors),
+         "frame_shape": list(img_cur.shape)}
+  kernel, call_launches = counted(wrappers, lambda: fn(*args))
+  plain = graft_entry.Step(dataclasses.replace(fn.config,
+                                               use_fused_kernel=False))
+  out["kernel_vs_plain"] = outputs_gap(kernel, plain(*args), TOL_PATH)
+  out["finite"] = all(bool(torch.isfinite(t).all()) for t in kernel)
+  out["P1_positive"] = bool((kernel[1] > 0).all())
+  out["shapes"] = [list(t.shape) for t in kernel]
+
+  # the step as one CUDA graph: warm-up on a side stream, then capture
+  side = torch.cuda.Stream(dev)
+  side.wait_stream(torch.cuda.current_stream(dev))
+  with torch.cuda.stream(side):
+    fn(*args)
+  torch.cuda.current_stream(dev).wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with launches_lib.recorded() as record, torch.cuda.graph(
+      graph, capture_error_mode="thread_local"):
+    graphed = fn(*args)
+
+  def replay():
+    graph.replay()
+    launches_lib.replayed(record)
+
+  _, replay_launches = counted(wrappers, replay)
+  out["graphed_vs_eager"] = outputs_gap(graphed, kernel, GRAPH_TOL)
+  out["eager_ms"] = median_call_ms(lambda: fn(*args), GRAFT_CALLS)
+  out["graphed_ms"] = median_call_ms(graph.replay, GRAFT_CALLS)
+  out["timed_calls"] = GRAFT_CALLS
+  out["launches"] = call_launches
+  out["launches_replay"] = replay_launches
+  out["launches_expected"] = {"fused_warp_kalman": 1, "conv3x3_same": 0,
+                              "conv3x3_gn_chain": 0}
+  del graph, graphed, kernel, params, args, tensors
+
+  # the dry run over the card named GRAFT_DRYRUN_ENTRIES times
+  t0 = time.time()
+  _, dry_launches = counted(
+      wrappers, lambda: graft_entry.dryrun_multichip(GRAFT_DRYRUN_ENTRIES))
+  out["dryrun"] = {"entries": GRAFT_DRYRUN_ENTRIES,
+                   "mesh": [str(d) for d in graft_entry.dryrun_mesh(
+                       GRAFT_DRYRUN_ENTRIES).devices],
+                   "seconds": round(time.time() - t0, 3),
+                   "launches": dry_launches}
+  return out, {"graft_entry": call_launches,
+               "graft_entry_replay": replay_launches,
+               "graft_dryrun": dry_launches}
+
+
+def check_graft_entry(ge):
+  """Raise on any hold of phase "graft_entry" that failed."""
+  if not (ge["config_use_fused_kernel"] and ge["on_card"]):
+    raise AssertionError(f"entry() off the card or without the fused "
+                         f"kernel: {ge}")
+  if not ge["kernel_vs_plain"]["held"]:
+    raise AssertionError(f"entry()'s kernel step off its plain version: "
+                         f"{ge['kernel_vs_plain']}")
+  if not (ge["finite"] and ge["P1_positive"]):
+    raise AssertionError("entry()'s step: non-finite outputs or P1 <= 0")
+  if not ge["graphed_vs_eager"]["held"]:
+    raise AssertionError(f"entry()'s step graphed off eager: "
+                         f"{ge['graphed_vs_eager']}")
+  for k in ("launches", "launches_replay"):
+    if ge[k] != ge["launches_expected"]:
+      raise AssertionError(f"entry() {k} {ge[k]}, expected "
+                           f"{ge['launches_expected']}")
+  if any(ge["dryrun"]["launches"].values()):
+    raise AssertionError(f"the dry run (the composition) launched "
+                         f"{ge['dryrun']['launches']}")
+
+
 def main():
   t_all = time.time()
   import numpy as np
@@ -3964,6 +4094,15 @@ def main():
       total_seconds=round(time.time() - t_all, 1))
   check_study(st)
 
+  # 16. the root entry points' counterpart: entry() and dryrun_multichip
+  t0 = time.time()
+  ge, ge_launches = graft_entry_phase(dev, wrappers)
+  print(smi, flush=True)
+  say("graft_entry", t0, gpu=gpu, nvidia_smi=smi,
+      tol={"path": TOL_PATH, "graphed_vs_eager": GRAPH_TOL}, **ge,
+      total_seconds=round(time.time() - t_all, 1))
+  check_graft_entry(ge)
+
   bad = [m for m in FORBIDDEN if m in sys.modules]
   if bad:
     raise AssertionError(f"imported {bad}")
@@ -3991,7 +4130,7 @@ def main():
               "soak": sk["launches"],
               **{f"fleet_{k}": v["launches"]
                  for k, v in fleet_checks.items()},
-              **mesh_launches, **study_launches}
+              **mesh_launches, **study_launches, **ge_launches}
   phase_launches = lambda k: {p: v[k] for p, v in by_phase.items()}
   print(json.dumps({"kernels": [{
       # the fused update: the main path's heads-in entry, one 60x80 map

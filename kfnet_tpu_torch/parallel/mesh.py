@@ -12,8 +12,9 @@ through the same code as on distinct GPUs, on one card.
 
 ``batch_sharding`` and ``replicated`` (JAX ``NamedSharding``s) have no
 meaning without GSPMD and are not ported: a ``Sharded`` value names its
-split axis and the device of each shard itself, and ``replicate_tree``
-gives one copy per entry.
+split axis and the device of each shard itself, ``replicate_tree`` gives
+one copy per entry, and ``replica_tree`` joins per-entry copies into one
+tree of ``Replicated`` leaves.
 """
 
 from __future__ import annotations
@@ -209,14 +210,14 @@ class Replicated:
     self.devices = [torch.device(d) for d in devices]
 
 
-def replicated(trees: Sequence, devices) -> object:
+def replica_tree(trees: Sequence, devices) -> object:
   """One tree of ``Replicated`` leaves from per-entry trees of one
   structure, ``trees[i]`` on ``devices[i]``."""
   first = trees[0]
   if isinstance(first, dict):
-    return {k: replicated([t[k] for t in trees], devices) for k in first}
+    return {k: replica_tree([t[k] for t in trees], devices) for k in first}
   if isinstance(first, (list, tuple)):
-    return [replicated([t[j] for t in trees], devices)
+    return [replica_tree([t[j] for t in trees], devices)
             for j in range(len(first))]
   return Replicated(trees, devices)
 
@@ -233,7 +234,7 @@ def entry_params(tree, i: int, device) -> object:
     if t.device != device:
       raise ValueError(
           f"a weight on {t.device} for a shard on {device}: place the params "
-          "once per device (parallel.mesh.replicated)")
+          "once per device (parallel.mesh.replica_tree)")
     return t
 
   return _tree_map(pick, tree)

@@ -277,8 +277,8 @@ def run_filter_spatial(params, config: kfnet.KFNetConfig, images, mesh,
                      f"mesh size ({8 * n})")
   placed = {d: _spatial_params.get(params, d)
             for d in dict.fromkeys(mesh.devices)}
-  params = mesh_lib.replicated([placed[d] for d in mesh.devices],
-                               mesh.devices)
+  params = mesh_lib.replica_tree([placed[d] for d in mesh.devices],
+                                 mesh.devices)
   frames = split(mesh, images, axis=-2)
   x, P, feat = _first_step(params, config, frames.map(lambda t: t[0]))
   xs, Ps = [x], [P]

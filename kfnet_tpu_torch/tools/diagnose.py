@@ -34,7 +34,10 @@ The statistics are host numpy (float64), as in the JAX tool; the series
 come from ``tools/calibrate.py`` on the device, and the pose solves draw
 from a generator seeded with 0 before each solve. Table:
 ``tools/diagnose_summary.py``. ``--device`` (``cuda`` unless given; raises
-without one) is the one flag the JAX tool lacks.
+without one) is the one flag the JAX tool lacks. The report also records
+``seed_offset`` and ``scoordnet_norm``, which the JAX tool's does not, and
+a ``--modes`` re-run merges only into a report made under the same
+settings (``RUN_KEYS``); any other raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -113,7 +116,10 @@ def residual_stats(coords, gt_coords, valid, variance=None, top_k=None,
   σ-ranking quality (needs ``variance``): the solver preselects the
   top-k lowest-σ cells (pose/ransac.select_confident), so a trunk whose
   σ mis-ranks under transfer feeds PnP a worse pool than the field
-  median suggests.
+  median suggests. The pool here is the k lowest-σ cells among those
+  valid in the ground truth: select_confident ranks every cell, but an
+  error needs a GT label, so the statistics below cannot rank the cells
+  the solver does where GT is missing.
     * median_topk_coord_err_m — field error restricted to that pool.
     * sigma_err_rank_corr — mean per-frame Spearman ρ(σ, ‖err‖); ~0
       means confidence is uninformative, <0 means anti-informative.
@@ -235,7 +241,9 @@ def residual_stats(coords, gt_coords, valid, variance=None, top_k=None,
       if m.sum() <= 100:
         continue
       k = min(top_k or m.sum(), int(m.sum()))
-      # mirror select_confident: lowest-σ VALID cells
+      # the k lowest-σ cells among those VALID in the ground truth: the
+      # solver's select_confident ranks every cell, but an error needs a
+      # GT label, so the pool's statistics cannot follow it there
       order = np.argsort(np.where(m, s_t, np.inf), kind="stable")[:k]
       topk_errs.append(float(np.median(e_t[order])))
       sv, ev = s_t[m], e_t[m]
@@ -390,6 +398,27 @@ def merge_modes(prev: dict, rows: list) -> list:
   return rows + [r for r in prev.get("modes", []) if r["mode"] not in ran]
 
 
+# the settings a report's rows were computed under: a --modes re-run may
+# merge its rows only into a report of the same settings
+RUN_KEYS = ("scene", "stress", "test_frames", "seed_offset",
+            "scoordnet_norm")
+
+
+def check_same_run(prev: dict, settings: dict) -> None:
+  """Raise ``ValueError`` unless the report ``prev`` was made under this
+  run's ``settings`` (``RUN_KEYS``; a report that lacks one, as the JAX
+  tool's lack ``seed_offset`` and ``scoordnet_norm``, does not match)."""
+  missing = object()
+  bad = {k: (prev.get(k, missing), settings[k]) for k in RUN_KEYS
+         if prev.get(k, missing) != settings[k]}
+  if bad:
+    raise ValueError(
+        "--report holds another run's rows; not merging. Differing "
+        "settings (report's, this run's): " + ", ".join(
+            f"{k}=({'missing' if a is missing else repr(a)}, {b!r})"
+            for k, (a, b) in bad.items()))
+
+
 def main(argv=None):
   p = argparse.ArgumentParser()
   p.add_argument("--work_dir", required=True)
@@ -425,6 +454,16 @@ def main(argv=None):
     scenes = tuple(dataclasses.replace(s, seed=s.seed + args.seed_offset)
                    for s in scenes)
   scenes = tuple(s for s in scenes if s.name == args.scene)
+  settings = {"scene": args.scene, "stress": args.stress,
+              "test_frames": args.test_frames,
+              "seed_offset": args.seed_offset,
+              "scoordnet_norm": args.scoordnet_norm}
+  wanted = [w for w in args.modes.split(",") if w]
+  prev = None
+  if args.report and wanted and os.path.exists(args.report):
+    with open(args.report) as f:
+      prev = json.load(f)
+    check_same_run(prev, settings)  # before the run, not after it
   data, of, _, joint = protocol.prepare_stages(
       scenes=scenes, strict_cache=True, **kw)
   s = scenes[0]
@@ -465,8 +504,6 @@ def main(argv=None):
     print(json.dumps(rep), flush=True)
     return rep
 
-  wanted = [w for w in args.modes.split(",") if w]
-
   def want(name):
     return not wanted or any(w in name for w in wanted)
 
@@ -499,16 +536,11 @@ def main(argv=None):
     xs, Ps = calibrate.filter_from_series(cfg1, series, chi2, w)
     rows.append(mode_report(name, xs, Ps))
 
-  out = {"scene": s.name, "stress": args.stress,
-         "test_frames": args.test_frames,
+  out = {**settings,
          "scene_geometry": scene_geometry(gt_coords, gt_valid,
                                           gt_poses[:, :3, 3]),
-         "modes": rows}
+         "modes": rows if prev is None else merge_modes(prev, rows)}
   if args.report:
-    if wanted and os.path.exists(args.report):
-      with open(args.report) as f:
-        prev = json.load(f)
-      out["modes"] = merge_modes(prev, rows)
     with open(args.report, "w") as f:
       json.dump(out, f, indent=2)
   return out

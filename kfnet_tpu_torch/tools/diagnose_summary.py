@@ -1,6 +1,7 @@
 """Render GN-vs-alt diagnose pairs as one mechanism table (port of
 ``kfnet_tpu/tools/diagnose_summary.py``; for the same input files its
-output is the JAX tool's, character for character).
+output is the JAX tool's, character for character, except that a scene
+geometry of None, which the JAX tool cannot format, prints "—").
 
 Each ``tools/diagnose.py`` artifact carries one (scene, trunk) cell with
 field statistics (median/mean coord error, lag-1 autocorrelation,
@@ -71,9 +72,14 @@ def rows_for(label, gn_path, alt_path, mode, alt_label="none"):
   out = []
   for trunk, m in (("group", gn), (alt_label, alt)):
     out.append([f"{label}/{trunk}"] +
-               [(f"{m.get(key):.{nd}f}" if m.get(key) is not None else "—")
-                for _, key, nd in STATS])
+               [_fmt(m.get(key), nd) for _, key, nd in STATS])
   return out, gn_art.get("scene_geometry")
+
+
+def _fmt(value, nd: int) -> str:
+  """``value`` to ``nd`` decimals, "—" for None (a statistic no frame had
+  the valid cells for)."""
+  return "—" if value is None else f"{value:.{nd}f}"
 
 
 def main(argv=None):
@@ -99,9 +105,9 @@ def main(argv=None):
     table += rows
     if geom:
       geoms.append(
-          f"{label}: lever_arm_gain={geom['lever_arm_gain']:.1f} "
-          f"(cam-centroid d={geom['median_cam_centroid_dist_m']:.2f} m, "
-          f"cloud radius r={geom['median_cloud_radius_m']:.2f} m)")
+          f"{label}: lever_arm_gain={_fmt(geom['lever_arm_gain'], 1)} "
+          f"(cam-centroid d={_fmt(geom['median_cam_centroid_dist_m'], 2)} m, "
+          f"cloud radius r={_fmt(geom['median_cloud_radius_m'], 2)} m)")
 
   if args.markdown:
     print("| " + " | ".join(header) + " |")

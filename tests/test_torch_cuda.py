@@ -47,7 +47,10 @@ one card named four (or two) times: the fleet's streams against the
 one-device batch at the card-against-CPU tolerance above, the mesh
 relocaliser's poses against the one-device fleet's at atol 1e-3, and
 fit(mesh=) against fit on the card at tests/test_sharding.py's loss rtol
-1e-5 and the gradients at tests/test_torch_train.py's tolerance.
+1e-5 and the gradients at tests/test_torch_train.py's tolerance. The
+root entry points' counterpart (graft_entry): entry()'s step on the card,
+one fused launch a call, against the composition at rtol = atol = 1e-3
+(chip_smoke.py's TOL_PATH); dryrun_multichip(2) on the card named twice.
 """
 
 import unittest.mock as mock
@@ -1202,3 +1205,34 @@ def test_winograd_gradients_on_card(cuda):
   winograd.conv3x3_winograd(x, w).float().sum().backward()
   assert torch.isfinite(w.grad).all()
 
+
+def test_graft_entry_on_card_matches_the_composition(cuda):
+  import dataclasses
+  from kfnet_tpu_torch import graft_entry
+  fn, args = graft_entry.entry()
+  params, img_prev, img_cur = args
+  assert fn.config.use_fused_kernel
+  assert all(t.device.type == "cuda"
+             for t in L.tree_leaves(params) + [img_prev, img_cur])
+  tff.fused_filter_step.launches = 0
+  tc3.conv3x3_same.launches = tc3.conv3x3_gn_chain.launches = 0
+  got = fn(*args)
+  fn(*args)
+  torch.cuda.synchronize()
+  assert tff.fused_filter_step.launches == 2
+  assert tc3.conv3x3_same.launches == tc3.conv3x3_gn_chain.launches == 0
+  plain = graft_entry.Step(dataclasses.replace(fn.config,
+                                               use_fused_kernel=False))
+  for g, w in zip(got, plain(*args)):
+    assert torch.isfinite(g).all()
+    torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+  assert (got[1] > 0).all()
+
+
+def test_graft_dryrun_on_a_repeated_card(cuda):
+  from kfnet_tpu_torch import graft_entry
+  assert graft_entry.dryrun_mesh(2).devices == (torch.device("cuda", 0),) * 2
+  tff.fused_filter_step.launches = 0
+  graft_entry.dryrun_multichip(2)
+  torch.cuda.synchronize()
+  assert tff.fused_filter_step.launches == 0  # the composition

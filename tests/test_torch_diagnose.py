@@ -4,7 +4,9 @@ the same numpy inputs — its own assertions on the port's statistics, and
 every output of the port's within 1e-6 relative of the JAX package's —
 and main on a tiny cached work dir: the filtered rows' labels equal the
 JAX tool's, and a --modes re-run merged into its report replaces only the
-rows it re-ran.
+rows it re-ran; the report records seed_offset and scoordnet_norm beside
+the JAX tool's keys, and a re-run refuses to merge into a report of other
+settings.
 """
 
 import contextlib
@@ -21,7 +23,7 @@ from kfnet_tpu import configs as jconfigs
 from kfnet_tpu.models import kfnet as jkfnet
 from kfnet_tpu.tools import diagnose as jdiagnose
 from kfnet_tpu.tools import protocol as jprotocol
-from kfnet_tpu_torch.tools import diagnose, protocol
+from kfnet_tpu_torch.tools import diagnose, diagnose_summary, protocol
 from tests import test_diagnose_stats as cases
 
 FUNCS = ("residual_stats", "scene_geometry", "counterfactual_maps",
@@ -129,6 +131,9 @@ def test_main_labels_and_merge(cache, tmp_path):
     assert np.isfinite(row["median_translation_m"])
     assert row["median_coord_err_m"] is not None
   assert np.isfinite(out["scene_geometry"]["lever_arm_gain"])
+  assert list(out) == ["scene", "stress", "test_frames", "seed_offset",
+                       "scoordnet_norm", "scene_geometry", "modes"]
+  assert (out["seed_offset"], out["scoordnet_norm"]) == (0, None)
 
   # a targeted re-run replaces only its own rows in the report
   with open(report) as f:
@@ -142,3 +147,65 @@ def test_main_labels_and_merge(cache, tmp_path):
       ["measurement_only"] + [r["mode"] for r in first
                               if r["mode"] != "measurement_only"])
   assert merged[1:] == [r for r in first if r["mode"] != "measurement_only"]
+
+
+RUN = {"scene": "sceneA", "stress": 0.0, "test_frames": 6, "seed_offset": 0,
+       "scoordnet_norm": None}
+
+
+@pytest.mark.parametrize("key,other", [
+    ("scene", "heldout"), ("stress", 0.5), ("test_frames", 7),
+    ("seed_offset", 1), ("scoordnet_norm", "none")])
+def test_merge_refuses_a_report_of_other_settings(key, other):
+  with pytest.raises(ValueError, match=key):
+    diagnose.check_same_run({**RUN, key: other, "modes": []}, RUN)
+  diagnose.check_same_run({**RUN, "modes": []}, RUN)
+
+
+def test_merge_refuses_a_report_that_lacks_the_settings():
+  """A report without seed_offset and scoordnet_norm (the JAX tool's)
+  cannot show it was made under this run's settings."""
+  prev = {k: v for k, v in RUN.items() if k not in ("seed_offset",
+                                                    "scoordnet_norm")}
+  with pytest.raises(ValueError, match="seed_offset=.missing"):
+    diagnose.check_same_run(prev, RUN)
+
+
+@pytest.mark.parametrize("key,other", [("scene", "heldout"),
+                                       ("seed_offset", 1)])
+def test_main_refuses_to_merge_into_another_runs_report(cache, tmp_path, key,
+                                                        other):
+  """A --modes re-run over a report whose scene or seed_offset differs
+  raises before it runs anything and leaves the report as it was."""
+  report = tmp_path / "diag.json"
+  report.write_text(json.dumps({**RUN, key: other, "scene_geometry": {},
+                                "modes": [{"mode": "measurement_only"}]}))
+  before = report.read_text()
+  with mock.patch.object(protocol, "prepare_stages",
+                         side_effect=AssertionError("the run started")):
+    with pytest.raises(ValueError, match=key):
+      diagnose.main(["--work_dir", cache, *ARGS, "--device", "cpu",
+                     "--report", str(report), "--modes", "measurement_only"])
+  assert report.read_text() == before
+
+
+def test_summary_prints_a_dash_for_a_degenerate_geometry(tmp_path, capsys):
+  """No frame with more than 100 valid cells: scene_geometry's values are
+  None, and the summary prints "—" for each (the JAX tool raises)."""
+  geometry = diagnose.scene_geometry(np.zeros((2, 6, 8, 3)),
+                                     np.zeros((2, 6, 8), bool),
+                                     np.zeros((2, 3)))
+  assert set(geometry.values()) == {None}
+  row = {"mode": "measurement_only", "median_translation_m": 0.5}
+  paths = []
+  for name in ("gn", "alt"):
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps({**RUN, "scene_geometry": geometry,
+                                "modes": [row]}))
+    paths.append(str(path))
+  table = diagnose_summary.main(["--pairs", "tiny:" + ":".join(paths)])
+  lines = capsys.readouterr().out.splitlines()
+  assert lines[-1] == ("tiny: lever_arm_gain=— (cam-centroid d=— m, "
+                       "cloud radius r=— m)")
+  assert [r[:2] for r in table] == [["tiny/group", "0.500"],
+                                    ["tiny/none", "0.500"]]

@@ -1,7 +1,7 @@
 """The port stands alone: kfnet_tpu_torch and chip_smoke.py import nothing
-of JAX or of the JAX package (nor orbax, tensorstore, zstandard, cv2 or
-PIL: the card's machine has none of them) and load
-nothing of its native/ library, the kernel build carries the flags it
+of JAX, of the JAX package or of the root __graft_entry__ (nor orbax,
+tensorstore, zstandard, cv2 or PIL: the card's machine has none of them)
+and load nothing of its native/ library, the kernel build carries the flags it
 must, and chip_smoke.py refuses to run, printing no verdict, where there
 is no CUDA device or no port beside it. No nvcc or GPU is needed here.
 """
@@ -20,8 +20,8 @@ import pytest
 from kfnet_tpu_torch.kernels import _build
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "kfnet_tpu", "orbax", "optax", "tensorstore",
-             "zstandard", "cv2", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "kfnet_tpu", "__graft_entry__", "orbax",
+             "optax", "tensorstore", "zstandard", "cv2", "PIL")
 PORT_FILES = sorted((ROOT / "kfnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 

@@ -121,6 +121,20 @@ def test_replicate_tree_copies_per_entry(mesh):
   assert all(torch.equal(r["b"][0], params["b"][0]) for r in reps)
 
 
+def test_replica_tree_is_not_named_as_the_jax_sharding():
+  """JAX's replicated(mesh) returns a sharding; the port's helper that
+  joins per-entry copies has a name of its own, so no caller of the JAX
+  signature reaches it."""
+  assert hasattr(jmesh, "replicated")
+  assert not hasattr(tmesh, "replicated")
+  devices = [torch.device("cpu")] * 2
+  tree = tmesh.replica_tree([{"w": [torch.ones(2)]}, {"w": [torch.zeros(2)]}],
+                            devices)
+  leaf = tree["w"][0]
+  assert isinstance(leaf, tmesh.Replicated) and leaf.devices == devices
+  assert [c.tolist() for c in leaf.copies] == [[1.0, 1.0], [0.0, 0.0]]
+
+
 def sc_setup(seed):
   cfg = tc.tiny_scoordnet()
   jparams = jscoord.init(jax.random.key(seed), cfg, tc.IMG)

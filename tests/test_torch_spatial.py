@@ -346,7 +346,7 @@ def test_sharded_layers_take_each_entrys_placed_params(mesh, setup,
   tspatial.run_filter_spatial(params, cfg, images(2, 9), mesh)
   assert seen and all(seen)
   placed = tspatial._spatial_params.get(params, "cpu")
-  rep = tmesh.replicated([placed] * 8, mesh.devices)
+  rep = tmesh.replica_tree([placed] * 8, mesh.devices)
   assert all(c is p for r, p in zip(L.tree_leaves(rep),
                                     L.tree_leaves(placed))
              for c in r.copies)
