@@ -22,6 +22,10 @@ carry into the graph's carry buffers and replays. A new frame shape or an
 in-place weight update captures again; a capture synchronises the device
 once (``torch.cuda.graph``). ``graph=False`` runs every step eagerly, as
 on the CPU.
+
+A tick is the span ``online.tick`` (``utils/tracing.py``) of the frame or
+tick number, and the host's one wait for a frame or tick ``online.wait``,
+which counts one ``host.syncs``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from kfnet_tpu_torch.models import kfnet
 from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.parallel.mesh import Sharded
 from kfnet_tpu_torch.pose import ransac, smoothing
+from kfnet_tpu_torch.utils import tracing
 
 
 def _consistent_frac(aux) -> torch.Tensor:
@@ -160,25 +165,26 @@ class OnlineRelocalizer(_Relocalizer):
     never waits on the device, except on a frame that captures the filter
     step's graph (its first filter-step frame, and the first after a new
     frame shape or a weight update), where the capture synchronises once."""
-    frame = _host_frames(image, self.device)
-    if self._carry is None:
-      self._first(frame)
-      frac = torch.zeros((1,), dtype=torch.float32, device=self.device)
-    elif self._graph:
-      frac = self._replayed(frame, _consistent_frac)
-    else:
-      image = kfnet.preprocess_images(
-          self._config, frame.to(self.device, non_blocking=True))
-      x, P, feat = self._carry
-      x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config, x,
-                                             P, feat, image)
-      frac = _consistent_frac(aux)
-      self._carry = (x1, P1, feat1)
-    self._frames += 1
-    parts = [frac]
-    if self._solve:
-      parts += self._solve_packed()
-    return torch.cat(parts)
+    with tracing.span("online.tick", id=self._frames):
+      frame = _host_frames(image, self.device)
+      if self._carry is None:
+        self._first(frame)
+        frac = torch.zeros((1,), dtype=torch.float32, device=self.device)
+      elif self._graph:
+        frac = self._replayed(frame, _consistent_frac)
+      else:
+        image = kfnet.preprocess_images(
+            self._config, frame.to(self.device, non_blocking=True))
+        x, P, feat = self._carry
+        x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config,
+                                               x, P, feat, image)
+        frac = _consistent_frac(aux)
+        self._carry = (x1, P1, feat1)
+      self._frames += 1
+      parts = [frac]
+      if self._solve:
+        parts += self._solve_packed()
+      return torch.cat(parts)
 
   def process(self, image):
     """Feed one (H, W, 3) frame (uint8 0..255, or float in [0, 1]);
@@ -187,7 +193,10 @@ class OnlineRelocalizer(_Relocalizer):
     info: frame, consistent_frac (filter health; ~0 after a cut), and
     num_inliers / inlier_ratio when pose solving is on."""
     info: dict = {"frame": self._frames}
-    packed = self.tick(image).cpu().numpy()  # the frame's one host sync
+    packed = self.tick(image)
+    with tracing.span("online.wait", id=info["frame"]):
+      tracing.count("host.syncs")
+      packed = packed.cpu().numpy()  # the frame's one host sync
     info["consistent_frac"] = float(packed[0])
     if not self._solve:
       return None, info
@@ -321,22 +330,23 @@ class FleetRelocalizer(_Relocalizer):
     returns the packed (B, 19) (or (B, 1) without pose solving) float32
     block on the device. Reads nothing back and never waits on the device,
     except on the tick that captures the filter step's graph."""
-    frames = _host_frames(images, self.device)
-    if frames.shape[0] != self._B:
-      raise ValueError(f"expected batch {self._B}, got {frames.shape[0]}")
-    if self._entries is not None:
-      return self._tick_split(frames, reset)
-    if self._carry is None:  # every slot fresh; the mask means nothing
-      self._first(frames)
-      frac = torch.zeros((self._B, 1), dtype=torch.float32,
-                         device=self.device)
-    else:
-      frac = self._filter(frames, self._mask(reset))
-    self._ticks += 1
-    parts = [frac]
-    if self._solve:
-      parts += self._solve_packed()
-    return torch.cat(parts, dim=1)
+    with tracing.span("online.tick", id=self._ticks):
+      frames = _host_frames(images, self.device)
+      if frames.shape[0] != self._B:
+        raise ValueError(f"expected batch {self._B}, got {frames.shape[0]}")
+      if self._entries is not None:
+        return self._tick_split(frames, reset)
+      if self._carry is None:  # every slot fresh; the mask means nothing
+        self._first(frames)
+        frac = torch.zeros((self._B, 1), dtype=torch.float32,
+                           device=self.device)
+      else:
+        frac = self._filter(frames, self._mask(reset))
+      self._ticks += 1
+      parts = [frac]
+      if self._solve:
+        parts += self._solve_packed()
+      return torch.cat(parts, dim=1)
 
   def _tick_split(self, frames, reset):
     """tick() over the mesh: each entry's filter step on its slots, then
@@ -402,8 +412,10 @@ class FleetRelocalizer(_Relocalizer):
 
   def _finalize(self, tick, host, mask):
     block, done = host
-    if done is not None:
-      done.synchronize()  # the tick's one host sync
+    with tracing.span("online.wait", id=tick):
+      tracing.count("host.syncs")
+      if done is not None:
+        done.synchronize()  # the tick's one host sync
     packed = block.numpy().copy()
     info: dict = {"tick": tick}
     # a slot's smoother restarts at the tick whose frame reset it: here,

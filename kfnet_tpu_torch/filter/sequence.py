@@ -32,6 +32,7 @@ from kfnet_tpu_torch.kernels import launches
 from kfnet_tpu_torch.models import kfnet
 from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.parallel import mesh as mesh_lib
+from kfnet_tpu_torch.utils import tracing
 
 
 class GraphedStep:
@@ -50,29 +51,36 @@ class GraphedStep:
 
   The graph holds the addresses of the weights and of the conv kernels'
   prepared weight layouts, so it is valid while no held weight has been
-  updated in place or replaced (``fits``). A capture that fails raises."""
+  updated in place or replaced (``fits``). A capture that fails raises.
+
+  Building one is the span ``filter.capture`` (``utils/tracing.py``) and
+  counts one ``filter.captures`` and one ``host.syncs``; a replay is the
+  span ``filter.replay``, timed on the device by CUDA events."""
 
   def __init__(self, params, config, carry, frame, outputs, mask=None):
     self._params, self._config, self._outputs = params, config, outputs
     self._leaves = L.tree_leaves(params)
     self._weights = self._weight_state()
-    self.carry = tuple(t.clone() for t in carry)
-    self.frame = frame.clone()
-    self.mask = None if mask is None else mask.clone()
-    dev = frame.device
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):  # warm-up: this frame's step, eagerly
-      self.first = self._body()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    self.graph = torch.cuda.CUDAGraph()
-    # thread_local: the capture refuses unsafe CUDA calls (a sync, a
-    # pageable copy) made by this thread, which would break the graph,
-    # while calls from other threads of a server (pinning the next frame,
-    # say) cannot invalidate it
-    with launches.recorded() as self.recorded, torch.cuda.graph(
-        self.graph, capture_error_mode="thread_local"):
-      self.out = self._body()
+    with tracing.span("filter.capture"):
+      self.carry = tuple(t.clone() for t in carry)
+      self.frame = frame.clone()
+      self.mask = None if mask is None else mask.clone()
+      dev = frame.device
+      side = torch.cuda.Stream(dev)
+      side.wait_stream(torch.cuda.current_stream(dev))
+      with torch.cuda.stream(side):  # warm-up: this frame's step, eagerly
+        self.first = self._body()
+      torch.cuda.current_stream(dev).wait_stream(side)
+      self.graph = torch.cuda.CUDAGraph()
+      tracing.count("filter.captures")
+      tracing.count("host.syncs")  # torch.cuda.graph synchronises first
+      # thread_local: the capture refuses unsafe CUDA calls (a sync, a
+      # pageable copy) made by this thread, which would break the graph,
+      # while calls from other threads of a server (pinning the next
+      # frame, say) cannot invalidate it
+      with launches.recorded() as self.recorded, torch.cuda.graph(
+          self.graph, capture_error_mode="thread_local"):
+        self.out = self._body()
 
   def _weight_state(self):
     return tuple((t._version, t.data_ptr()) for t in self._leaves)
@@ -107,15 +115,16 @@ class GraphedStep:
     """This frame's step from ``carry`` (and the slots' reset ``mask``):
     copied into the carry's buffers first unless it is already there (it
     is after the graph's own step)."""
-    if carry is not self.carry:
-      for buf, new in zip(self.carry, carry):
-        buf.copy_(new)
-    self.frame.copy_(frame, non_blocking=True)
-    if mask is not None:
-      self.mask.copy_(mask, non_blocking=True)
-    self.graph.replay()
-    launches.replayed(self.recorded)
-    return self.out
+    with tracing.span("filter.replay", device=self.frame.device):
+      if carry is not self.carry:
+        for buf, new in zip(self.carry, carry):
+          buf.copy_(new)
+      self.frame.copy_(frame, non_blocking=True)
+      if mask is not None:
+        self.mask.copy_(mask, non_blocking=True)
+      self.graph.replay()
+      launches.replayed(self.recorded)
+      return self.out
 
 
 def restart_slots(mask, x1, P1, aux):
@@ -274,24 +283,26 @@ def _run_filter(params, config, frames, carry, return_aux, graph,
   return xs, Ps, carry
 
 
-def _stack_chunk(chunk, device: torch.device, copy_stream):
+def _stack_chunk(chunk, device: torch.device, copy_stream, index=None):
   """One chunk of frames as a (k, H, W, 3) tensor on ``device``. Host frames
   are stacked once on the host; bound for the card, they go through pinned
-  memory on ``copy_stream``, and the current stream waits for the copy."""
-  if isinstance(chunk[0], np.ndarray):
-    host = torch.from_numpy(np.stack(chunk))
-  else:
-    host = torch.stack([torch.as_tensor(f) for f in chunk])
-  if host.device == device or copy_stream is None:
-    return host.to(device)
-  host = host.pin_memory()
-  with torch.cuda.stream(copy_stream):
-    frames = host.to(device, non_blocking=True)
-    done = copy_stream.record_event()
-  compute = torch.cuda.current_stream(device)
-  compute.wait_event(done)
-  frames.record_stream(compute)  # allocated on the copy stream
-  return frames
+  memory on ``copy_stream``, and the current stream waits for the copy.
+  The span ``sequence.stage`` of chunk ``index``."""
+  with tracing.span("sequence.stage", id=index):
+    if isinstance(chunk[0], np.ndarray):
+      host = torch.from_numpy(np.stack(chunk))
+    else:
+      host = torch.stack([torch.as_tensor(f) for f in chunk])
+    if host.device == device or copy_stream is None:
+      return host.to(device)
+    host = host.pin_memory()
+    with torch.cuda.stream(copy_stream):
+      frames = host.to(device, non_blocking=True)
+      done = copy_stream.record_event()
+    compute = torch.cuda.current_stream(device)
+    compute.wait_event(done)
+    frames.record_stream(compute)  # allocated on the copy stream
+    return frames
 
 
 def run_filter_chunked_arrays(params, config: kfnet.KFNetConfig,
@@ -338,8 +349,8 @@ def run_filter_chunked_arrays(params, config: kfnet.KFNetConfig,
   graph = _use_graph(device, graph)
   copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-  def flush(chunk, carry):
-    frames = _stack_chunk(chunk, device, copy_stream)
+  def flush(chunk, carry, index):
+    frames = _stack_chunk(chunk, device, copy_stream, index)
     out = run_filter(params, config, frames, carry=carry,
                      return_aux=return_aux, device=device, graph=graph)
     if return_aux:
@@ -351,12 +362,13 @@ def run_filter_chunked_arrays(params, config: kfnet.KFNetConfig,
   buf = []
   carry = None
   first = True
+  chunks = 0  # chunks flushed
   pending = None  # the previous chunk's outputs, not yet yielded
   for frame in frame_source:
     buf.append(frame)
     if len(buf) == (chunk_size + 1 if first else chunk_size):
       try:
-        out, carry = flush(buf, carry)  # stack, upload, enqueue chunk k
+        out, carry = flush(buf, carry, chunks)  # stack, upload, enqueue k
       except BaseException:
         if pending is not None:
           done, pending = pending, None
@@ -364,12 +376,13 @@ def run_filter_chunked_arrays(params, config: kfnet.KFNetConfig,
         raise
       first = False
       buf = []
+      chunks += 1
       if pending is not None:
         yield pending  # the consumer reads k-1 while k computes
       pending = out
   if buf:
     try:
-      out, carry = flush(buf, carry)
+      out, carry = flush(buf, carry, chunks)
     except BaseException:
       if pending is not None:
         done, pending = pending, None

@@ -28,6 +28,7 @@ from kfnet_tpu_torch.kernels import fused_filter
 from kfnet_tpu_torch.kernels.cost_volume import cost_volume
 from kfnet_tpu_torch.models import oflownet, scoordnet
 from kfnet_tpu_torch.nn import layers as L
+from kfnet_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,12 +161,14 @@ def filter_step(params, config: KFNetConfig, x_prev, P_prev, feat_prev,
     raw_flow = _decode_raw(params, of, cv)
     raw_coord = _frames(sc, lambda im: scoordnet.apply_raw(
         params["scoordnet"], sc, im), image_cur)
-    x_post, P_post, consistent, flow, W, z, V = fused_filter.fused_filter_step(
-        raw_flow, raw_coord, x_prev.contiguous(), P_prev.contiguous(),
-        radius=config.oflownet.search_radius, w_scale=config.w_scale,
-        coord_scale=sc.coord_scale, coord_offset=sc.coord_offset,
-        log_w_clip=oflownet.LOG_VAR_CLIP, log_v_clip=scoordnet.LOG_VAR_CLIP,
-        threshold=config.chi2_threshold, invalid_cov=config.invalid_cov)
+    with tracing.span("fused"):
+      out = fused_filter.fused_filter_step(
+          raw_flow, raw_coord, x_prev.contiguous(), P_prev.contiguous(),
+          radius=config.oflownet.search_radius, w_scale=config.w_scale,
+          coord_scale=sc.coord_scale, coord_offset=sc.coord_offset,
+          log_w_clip=oflownet.LOG_VAR_CLIP, log_v_clip=scoordnet.LOG_VAR_CLIP,
+          threshold=config.chi2_threshold, invalid_cov=config.invalid_cov)
+    x_post, P_post, consistent, flow, W, z, V = out
     aux = {"flow": flow, "W": W, "z": z, "V": V, "consistent": consistent}
     return x_post, P_post, feat_cur, aux
   flow, W = flow_from_features(params, config, feat_prev, feat_cur)
@@ -215,8 +218,9 @@ def _measure_frames(params, config: KFNetConfig, image: torch.Tensor):
 
 def first_step(params, config: KFNetConfig, image: torch.Tensor):
   """Frame 0 (or a batch of B frames 0): no prior, so the posterior is
-  the measurement."""
-  z, V = _measure_frames(params, config, image)
-  feat = _frames(config.oflownet, lambda im: encode(params, config, im),
-                 image)
-  return z, V, feat
+  the measurement. The span ``filter.first``."""
+  with tracing.span("filter.first"):
+    z, V = _measure_frames(params, config, image)
+    feat = _frames(config.oflownet, lambda im: encode(params, config, im),
+                   image)
+    return z, V, feat

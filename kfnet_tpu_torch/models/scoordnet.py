@@ -24,6 +24,7 @@ import torch
 
 from kfnet_tpu_torch.core import heads
 from kfnet_tpu_torch.nn import layers as L
+from kfnet_tpu_torch.utils import tracing
 
 LOG_VAR_MIN = -12.0
 LOG_VAR_MAX = 12.0
@@ -183,9 +184,10 @@ def _fused_suffix(params, config: SCoordNetConfig,
   prologue_relu = False  # the prefix output is already normalized + relu'd
   for i in range(k, n_blocks + 1):  # trunk blocks k..n-1, then the head block
     # the chain takes bf16 in any config, as the JAX wrapper casts
-    x, s1, s2 = conv3x3_gn_chain(x.to(torch.bfloat16), scale, shift,
-                                 params[i][0]["w"],
-                                 prologue_relu=prologue_relu)
+    x = x.to(torch.bfloat16)
+    with tracing.span("conv"):
+      x, s1, s2 = conv3x3_gn_chain(x, scale, shift, params[i][0]["w"],
+                                   prologue_relu=prologue_relu)
     gn = params[i][1]
     scale, shift = gn_scale_shift(s1, s2, h * w, gn["scale"], gn["bias"])
     prologue_relu = True

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from kfnet_tpu_torch.parallel.mesh import Sharded, entry_params, even_bounds
+from kfnet_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,12 +198,15 @@ def _conv_sharded(x: Sharded, params, weights, out_ch, kernel, stride, cd,
     if eligible:
       from kfnet_tpu_torch.kernels import conv3x3
       blk = x.take(i, o0 - 1, o1 + 1).to(torch.bfloat16)
-      y = conv3x3.conv3x3_same(blk[0].permute(1, 2, 0).contiguous(), w_i,
-                               p_i.get("b"), relu=False, out_dtype=cd)
+      with tracing.span("conv"):
+        y = conv3x3.conv3x3_same(blk[0].permute(1, 2, 0).contiguous(), w_i,
+                                 p_i.get("b"), relu=False, out_dtype=cd)
       out.append(y.permute(2, 0, 1)[None, :, :, 1:-1])
       continue
     blk = x.take(i, stride * o0 - left, stride * (o1 - 1) - left + kernel)
-    y = F.conv2d(F.pad(blk.to(cd), (0, 0, t, b)), w_i.to(cd), stride=stride)
+    blk = F.pad(blk.to(cd), (0, 0, t, b))
+    with tracing.span("conv"):
+      y = F.conv2d(blk, w_i.to(cd), stride=stride)
     out.append(_bias_round(y, p_i, cd) if use_bias else y)
   return Sharded(out, -1, x.devices)
 
@@ -257,15 +261,18 @@ def conv(out_ch: int, kernel: int = 3, stride: int = 1, dilation: int = 1,
     if eligible:
       from kfnet_tpu_torch.kernels import conv3x3
       # the kernel casts x to bf16 in any config, as the JAX wrapper does
-      y = conv3x3.conv3x3_same(frame_hwc(x.to(torch.bfloat16)), wgt,
-                               params.get("b"), relu=False, out_dtype=cd)
+      x = frame_hwc(x.to(torch.bfloat16))
+      with tracing.span("conv"):
+        y = conv3x3.conv3x3_same(x, wgt, params.get("b"), relu=False,
+                                 out_dtype=cd)
       return y.permute(2, 0, 1)[None]
     if (impl == "winograd" and kernel == 3 and stride == 1
         and dilation == 1 and padding == "SAME"
         and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0):
       from kfnet_tpu_torch.kernels import winograd
-      return winograd.conv3x3_winograd(x, wgt, params.get("b"),
-                                       compute_dtype=cd)
+      with tracing.span("conv"):
+        return winograd.conv3x3_winograd(x, wgt, params.get("b"),
+                                         compute_dtype=cd)
     x = x.to(cd)
     if padding == "SAME":
       (t, b) = same_pads(x.shape[-2], eff, stride)
@@ -277,8 +284,9 @@ def conv(out_ch: int, kernel: int = 3, stride: int = 1, dilation: int = 1,
     else:  # asymmetric (a stride-2 conv on an even input): pad explicitly
       x = F.pad(x, (l, r, t, b))
       pad = (0, 0)
-    y = F.conv2d(x, wgt.to(cd), stride=stride, padding=pad,
-                 dilation=dilation)
+    with tracing.span("conv"):
+      y = F.conv2d(x, wgt.to(cd), stride=stride, padding=pad,
+                   dilation=dilation)
     if use_bias:
       y = _bias_round(y, params, cd)
     return y
@@ -325,8 +333,9 @@ def conv_transpose(out_ch: int, kernel: int = 4, stride: int = 2,
   def apply(params, x):
     if isinstance(x, Sharded):
       return _sharded(params, x)
-    y = F.conv_transpose2d(x.to(cd), params["w"].to(cd), stride=stride,
-                           padding=pad, output_padding=out_pad)
+    with tracing.span("conv"):
+      y = F.conv_transpose2d(x.to(cd), params["w"].to(cd), stride=stride,
+                             padding=pad, output_padding=out_pad)
     if use_bias:
       y = _bias_round(y, params, cd)
     return y
@@ -348,9 +357,10 @@ def conv_transpose(out_ch: int, kernel: int = 4, stride: int = 2,
       j0 = -(-(o0 - a) // stride)
       j1 = (o1 + kernel - 2 - a) // stride + 1
       p_i = entry_params(params, i, shard.device)
-      y = F.conv_transpose2d(x.take(i, j0, j1).to(cd), p_i["w"].to(cd),
-                             stride=stride, padding=(pad, 0),
-                             output_padding=(out_pad, 0))
+      with tracing.span("conv"):
+        y = F.conv_transpose2d(x.take(i, j0, j1).to(cd), p_i["w"].to(cd),
+                               stride=stride, padding=(pad, 0),
+                               output_padding=(out_pad, 0))
       f0 = o0 + pad - stride * j0
       y = y[..., f0:f0 + o1 - o0]
       out.append(_bias_round(y, p_i, cd) if use_bias else y)
@@ -387,18 +397,19 @@ def group_norm(groups: int = GN_GROUPS, eps: float = GN_EPS) -> Layer:
             torch.sum(torch.square(x32), dim=(-2, -1)))   # (B, C)
 
   def apply(params, x):
-    if isinstance(x, Sharded):
-      # each shard's sums are its columns'; the map's are their total,
-      # added on the first entry's device in shard order
-      parts = [moments(t) for t in x.shards]
-      dev = x.devices[0]
-      s1, s2 = (sum_in_order([p[k] for p in parts], dev) for k in (0, 1))
-      return Sharded([normalize(entry_params(params, i, t.device), t,
-                                s1.to(t.device), s2.to(t.device),
-                                x.shape[-2:])
-                      for i, t in enumerate(x.shards)], x.axis, x.devices)
-    s1, s2 = moments(x)
-    return normalize(params, x, s1, s2, x.shape[-2:])
+    with tracing.span("groupnorm"):
+      if isinstance(x, Sharded):
+        # each shard's sums are its columns'; the map's are their total,
+        # added on the first entry's device in shard order
+        parts = [moments(t) for t in x.shards]
+        dev = x.devices[0]
+        s1, s2 = (sum_in_order([p[k] for p in parts], dev) for k in (0, 1))
+        return Sharded([normalize(entry_params(params, i, t.device), t,
+                                  s1.to(t.device), s2.to(t.device),
+                                  x.shape[-2:])
+                        for i, t in enumerate(x.shards)], x.axis, x.devices)
+      s1, s2 = moments(x)
+      return normalize(params, x, s1, s2, x.shape[-2:])
 
   def normalize(params, x, s1, s2, hw):
     b, c = x.shape[0], x.shape[1]

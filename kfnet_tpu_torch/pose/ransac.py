@@ -8,7 +8,10 @@ Every step takes a leading frame dim T, where the JAX package vmaps the
 solve over frames: T frames solve in one pass of launches.
 Sampling is split from solving (``solve_with_indices``) so a test can
 feed the JAX package and the port the same index set. Nothing here reads
-a value back to the host.
+a value back to the host. A solve is the span ``pose.solve``
+(``utils/tracing.py``) over its four stages: ``pose.draw`` (top-k and
+draws), ``pose.hypothesize``, ``pose.score`` (errors, inliers, the pick)
+and ``pose.refine`` (LM, final errors and outputs).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from kfnet_tpu_torch.core import geometry as geo
 from kfnet_tpu_torch.pose import p3p, pnp
+from kfnet_tpu_torch.utils import tracing
 
 SOLVERS = ("dlt", "p3p")
 
@@ -108,28 +112,31 @@ def solve_with_indices(uv, X, w, K, idx, config: RansacConfig = RansacConfig()):
     mean_inlier_error_px (([T,]) each).
   """
   cfg = config
-  if cfg.solver == "p3p":  # 4 candidates a draw: ([T,] 4M, 3, 3)
-    Rs, ts = p3p.p3p_grunert(_take(uv, idx), _take(X, idx), K)
-    Rs = Rs.flatten(-4, -3)
-    ts = ts.flatten(-3, -2)
-  else:
-    Rs, ts = pnp.dlt_pnp(_take(uv, idx), _take(X, idx), K)  # ([T,] M, 3, 3)
-  pool = lambda a: a[..., None, :, :]  # against the M hypotheses
-  errs = pnp.reprojection_errors(pool(uv), pool(X), K, Rs, ts)  # (.., M, k)
-  inl = (errs < cfg.inlier_threshold_px).to(torch.float32) * w[..., None, :]
-  best = torch.argmax(torch.sum(inl, dim=-1), dim=-1)
-  R, t = pnp.refine_pnp_lm(uv, X, K, _pick(Rs, best), _pick(ts, best),
-                           _pick(inl, best), iters=cfg.refine_iters)
-  err_f = pnp.reprojection_errors(uv, X, K, R, t)
-  inl_f = (err_f < cfg.refine_threshold_px).to(torch.float32) * w
-  n_in = torch.sum(inl_f, dim=-1)
-  return {
-      "T_wc": geo.invert_pose(geo.make_pose(R, t)),
-      "num_inliers": n_in,
-      "inlier_ratio": n_in / torch.clamp_min(torch.sum(w, dim=-1), 1.0),
-      "mean_inlier_error_px":
-          torch.sum(err_f * inl_f, dim=-1) / torch.clamp_min(n_in, 1.0),
-  }
+  with tracing.span("pose.hypothesize"):
+    if cfg.solver == "p3p":  # 4 candidates a draw: ([T,] 4M, 3, 3)
+      Rs, ts = p3p.p3p_grunert(_take(uv, idx), _take(X, idx), K)
+      Rs = Rs.flatten(-4, -3)
+      ts = ts.flatten(-3, -2)
+    else:  # ([T,] M, 3, 3)
+      Rs, ts = pnp.dlt_pnp(_take(uv, idx), _take(X, idx), K)
+  with tracing.span("pose.score"):
+    pool = lambda a: a[..., None, :, :]  # against the M hypotheses
+    errs = pnp.reprojection_errors(pool(uv), pool(X), K, Rs, ts)  # (.., M, k)
+    inl = (errs < cfg.inlier_threshold_px).to(torch.float32) * w[..., None, :]
+    best = torch.argmax(torch.sum(inl, dim=-1), dim=-1)
+    R0, t0, inl0 = _pick(Rs, best), _pick(ts, best), _pick(inl, best)
+  with tracing.span("pose.refine"):
+    R, t = pnp.refine_pnp_lm(uv, X, K, R0, t0, inl0, iters=cfg.refine_iters)
+    err_f = pnp.reprojection_errors(uv, X, K, R, t)
+    inl_f = (err_f < cfg.refine_threshold_px).to(torch.float32) * w
+    n_in = torch.sum(inl_f, dim=-1)
+    return {
+        "T_wc": geo.invert_pose(geo.make_pose(R, t)),
+        "num_inliers": n_in,
+        "inlier_ratio": n_in / torch.clamp_min(torch.sum(w, dim=-1), 1.0),
+        "mean_inlier_error_px":
+            torch.sum(err_f * inl_f, dim=-1) / torch.clamp_min(n_in, 1.0),
+    }
 
 
 def solve_pnp_ransac(pixels, coords, variance, valid, K,
@@ -140,9 +147,10 @@ def solve_pnp_ransac(pixels, coords, variance, valid, K,
   1/σ²) and ([T,] N) validity, for one frame or T at once. See
   solve_with_indices."""
   k = min(config.top_k, coords.shape[-2])
-  uv, X, w = select_confident(pixels, coords, variance, valid, k)
-  idx = sample_hypotheses(w, config.num_hypotheses, config.draw_size,
-                          generator)
+  with tracing.span("pose.draw"):
+    uv, X, w = select_confident(pixels, coords, variance, valid, k)
+    idx = sample_hypotheses(w, config.num_hypotheses, config.draw_size,
+                            generator)
   return solve_with_indices(uv, X, w, K, idx, config)
 
 
@@ -152,14 +160,15 @@ def solve_pnp_from_maps(coords_map, variance_map, valid_map, K,
                         config: RansacConfig = RansacConfig()):
   """([T,] h, w, 3) / ([T,] h, w, 1) maps -> pose (per map); pixels are the
   stride-cell centres used in label generation."""
-  h, w = coords_map.shape[-3:-1]
-  lead = tuple(coords_map.shape[:-3])
-  grid = geo.cell_center_grid(h, w, stride,
-                              device=coords_map.device).reshape(-1, 2)
-  return solve_pnp_ransac(grid, coords_map.reshape(lead + (-1, 3)),
-                          variance_map.reshape(lead + (-1,)),
-                          valid_map.reshape(lead + (-1,)), K, generator,
-                          config)
+  with tracing.span("pose.solve"):
+    h, w = coords_map.shape[-3:-1]
+    lead = tuple(coords_map.shape[:-3])
+    grid = geo.cell_center_grid(h, w, stride,
+                                device=coords_map.device).reshape(-1, 2)
+    return solve_pnp_ransac(grid, coords_map.reshape(lead + (-1, 3)),
+                            variance_map.reshape(lead + (-1,)),
+                            valid_map.reshape(lead + (-1,)), K, generator,
+                            config)
 
 
 def solve_pnp_from_maps_batched(coords_maps, variance_maps, valid_maps, K,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from kfnet_tpu_torch.nn import layers as L
+from kfnet_tpu_torch.utils import tracing
 
 
 def sync(tree) -> float:
@@ -21,4 +22,5 @@ def sync(tree) -> float:
   absolute values as a float (the checksum also keeps the work needed)."""
   leaves = [t for t in L.tree_leaves(tree) if isinstance(t, torch.Tensor)]
   total = sum(torch.sum(torch.abs(t.to(torch.float32))) for t in leaves)
+  tracing.count("host.syncs")
   return float(total)  # scalar device->host copy == the sync
