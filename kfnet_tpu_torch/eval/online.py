@@ -12,16 +12,19 @@ the device, and ONE device->host copy of 19 packed floats:
 
 On ``cuda`` the filter step and consistent_frac run as one CUDA graph
 (``filter.sequence.GraphedStep``, which the sequence runners replay too),
-the port's counterpart of the JAX package's jitted ``_step`` (minus the
-pose solve, which runs eagerly after it): frame 0 runs ``first_step`` eagerly;
-the first filter-step frame runs the step eagerly on a side stream (the
-warm-up, which is that frame's result) and then captures it; every later
-frame copies itself into the graph's input buffer and replays it. The
-graph outlives ``reset()``: the frame after a restart copies the new
-carry into the graph's carry buffers and replays. A new frame shape or an
-in-place weight update captures again; a capture synchronises the device
-once (``torch.cuda.graph``). ``graph=False`` runs every step eagerly, as
-on the CPU.
+the port's counterpart of the JAX package's jitted ``_step``: frame 0 runs
+``first_step`` eagerly; the first filter-step frame runs the step eagerly
+on a side stream (the warm-up, which is that frame's result) and then
+captures it; every later frame copies itself into the graph's input
+buffer and replays it. The graph outlives ``reset()``: the frame after a
+restart copies the new carry into the graph's carry buffers and replays.
+A new frame shape or an in-place weight update captures again; a capture
+synchronises the device once (``torch.cuda.graph``). The pose solve is a second CUDA graph
+(``pose.ransac.GraphedSolve``): the first solve runs eagerly and then
+captures, every later one copies the maps in and replays, its draws the
+same blocks of the surface's generator as the eager solve's. A new map
+shape captures again; a reset does not. ``graph=False`` runs every step
+and solve eagerly, as on the CPU.
 
 A tick is the span ``online.tick`` (``utils/tracing.py``) of the frame or
 tick number, and the host's one wait for a frame or tick ``online.wait``,
@@ -77,8 +80,8 @@ def _packed_parts(out):
 
 class _Relocalizer:
   """What both serving surfaces hold: the weights, intrinsics and RANSAC
-  settings on the device, the (x, P, features) carry and the captured
-  filter step."""
+  settings on the device, the (x, P, features) carry, the captured filter
+  step and the graphed pose solve."""
 
   def __init__(self, params, config: kfnet.KFNetConfig, K,
                ransac_config: ransac.RansacConfig | None, stride: int,
@@ -94,6 +97,8 @@ class _Relocalizer:
     self._gen = torch.Generator(device=self.device).manual_seed(seed)
     self._carry = None
     self._step = None  # the captured filter step (cuda, graph on)
+    self._solver = (ransac.GraphedSolve() if self._graph and solve_pose
+                    else None)
 
   def _replayed(self, frames, fracs, *mask) -> torch.Tensor:
     """The filter step of the carry and ``frames`` as a graph replay (or,
@@ -125,12 +130,12 @@ class _Relocalizer:
     which the next tick overwrites: clone them to keep them."""
     return self._carry
 
-  def _solve_packed(self):
-    """The pose solve of the carry's maps, as the packed columns."""
-    x, P = self._carry[0], self._carry[1]
+  def _solve_packed(self, x, P):
+    """The pose solve of the (x, P) maps, as the packed columns (copied out
+    of the graph's output buffers by the caller's ``torch.cat``)."""
     return _packed_parts(ransac.solve_pnp_from_maps(
         x, P, torch.ones_like(P, dtype=torch.bool), self._K, self._gen,
-        stride=self._stride, config=self._rcfg))
+        stride=self._stride, config=self._rcfg, graphed=self._solver))
 
 
 class OnlineRelocalizer(_Relocalizer):
@@ -141,8 +146,9 @@ class OnlineRelocalizer(_Relocalizer):
                stride: int = 8, solve_pose: bool = True, seed: int = 0,
                device=None, graph: bool | None = None,
                smoother: smoothing.SmootherConfig | None = None):
-    """``graph``: replay the filter step as a CUDA graph (the default on
-    ``cuda``; ``False`` runs it eagerly; the CPU has no graphs).
+    """``graph``: replay the filter step and the pose solve as CUDA graphs
+    (the default on ``cuda``; ``False`` runs them eagerly; the CPU has no
+    graphs).
     ``smoother``: gate and blend the solved poses on the host
     (``pose/smoothing.py``); it resets with the filter."""
     super().__init__(params, config, K, ransac_config, stride, solve_pose,
@@ -162,9 +168,11 @@ class OnlineRelocalizer(_Relocalizer):
   def tick(self, image) -> torch.Tensor:
     """Enqueue one frame's work; returns the packed (19,) (or (1,) without
     pose solving) float32 result on the device. Reads nothing back and
-    never waits on the device, except on a frame that captures the filter
-    step's graph (its first filter-step frame, and the first after a new
-    frame shape or a weight update), where the capture synchronises once."""
+    never waits on the device, except on a frame that captures a graph:
+    the pose solve's (the first frame, and the first of a new frame shape)
+    or the filter step's (its first filter-step frame, and the first after
+    a new frame shape or a weight update), where each capture synchronises
+    once."""
     with tracing.span("online.tick", id=self._frames):
       frame = _host_frames(image, self.device)
       if self._carry is None:
@@ -183,7 +191,7 @@ class OnlineRelocalizer(_Relocalizer):
       self._frames += 1
       parts = [frac]
       if self._solve:
-        parts += self._solve_packed()
+        parts += self._solve_packed(*self._carry[:2])
       return torch.cat(parts)
 
   def process(self, image):
@@ -223,9 +231,10 @@ class FleetRelocalizer(_Relocalizer):
   replay for the B slots (``filter.sequence.GraphedStep``: one fused
   update launch over the B maps; kernel convs a frame at a time), the
   per-slot reset a mask the replay copies in, so a reset never captures
-  again. A slot that resets starts a new session at that frame, its
-  posterior the frame's measurement (``kfnet.first_step``'s). On the first
-  tick every slot starts fresh and the mask is ignored. Streams never
+  again; the B slots' pose solve is one ``GraphedSolve`` replay. A slot
+  that resets starts a new session at that frame, its posterior the
+  frame's measurement (``kfnet.first_step``'s). On the first tick every
+  slot starts fresh and the mask is ignored. Streams never
   interact, but in the default bf16 config a slot is not bit-equal to a
   lone stream: cuDNN's convolutions pick their algorithm by the batch
   (``PERF.md``); the conv-kernel config, whose nets run frame by frame, is.
@@ -243,11 +252,11 @@ class FleetRelocalizer(_Relocalizer):
   contiguous groups, one per mesh entry, as the JAX package shards them
   over its mesh: each entry filters its group on its device with its own
   graphed step and its share of the reset mask. The maps of all B slots
-  are then gathered on the first entry's device and solved there at once,
-  from the one generator, as the one-device fleet solves them: the draws,
-  and so the poses, do not depend on the split. ``state`` is (x, P, feat)
-  as ``Sharded`` values along the slots; ``tick`` returns the (B, 19)
-  block on the first entry's device.
+  are then gathered on the first entry's device and solved there at once
+  (one graphed solve on ``cuda``), from the one generator, as the
+  one-device fleet solves them: the draws, and so the poses, do not depend
+  on the split. ``state`` is (x, P, feat) as ``Sharded`` values along the
+  slots; ``tick`` returns the (B, 19) block on the first entry's device.
   """
 
   def __init__(self, params, config: kfnet.KFNetConfig, K, batch_size: int,
@@ -329,7 +338,8 @@ class FleetRelocalizer(_Relocalizer):
     """Enqueue one (B, H, W, 3) tick (uint8 0..255, or float in [0, 1]);
     returns the packed (B, 19) (or (B, 1) without pose solving) float32
     block on the device. Reads nothing back and never waits on the device,
-    except on the tick that captures the filter step's graph."""
+    except on a tick that captures the pose solve's graph or the filter
+    step's."""
     with tracing.span("online.tick", id=self._ticks):
       frames = _host_frames(images, self.device)
       if frames.shape[0] != self._B:
@@ -345,7 +355,7 @@ class FleetRelocalizer(_Relocalizer):
       self._ticks += 1
       parts = [frac]
       if self._solve:
-        parts += self._solve_packed()
+        parts += self._solve_packed(*self._carry[:2])
       return torch.cat(parts, dim=1)
 
   def _tick_split(self, frames, reset):
@@ -366,10 +376,7 @@ class FleetRelocalizer(_Relocalizer):
     self._ticks += 1
     parts = [fracs.full()]
     if self._solve:
-      x, P = self._carry[0].full(), self._carry[1].full()
-      parts += _packed_parts(ransac.solve_pnp_from_maps(
-          x, P, torch.ones_like(P, dtype=torch.bool), self._K, self._gen,
-          stride=self._stride, config=self._rcfg))
+      parts += self._solve_packed(self._carry[0].full(), self._carry[1].full())
     return torch.cat(parts, dim=1)
 
   def _to_host(self, packed):

@@ -12,6 +12,10 @@ a value back to the host. A solve is the span ``pose.solve``
 (``utils/tracing.py``) over its four stages: ``pose.draw`` (top-k and
 draws), ``pose.hypothesize``, ``pose.score`` (errors, inliers, the pick)
 and ``pose.refine`` (LM, final errors and outputs).
+
+A serving surface replays its solve as one CUDA graph (``GraphedSolve``,
+passed to ``solve_pnp_from_maps`` as ``graphed``); without one the solve
+runs eagerly, as every other caller runs it.
 """
 
 from __future__ import annotations
@@ -154,21 +158,95 @@ def solve_pnp_ransac(pixels, coords, variance, valid, K,
   return solve_with_indices(uv, X, w, K, idx, config)
 
 
+def _solve_maps(coords_map, variance_map, valid_map, K, generator, stride,
+                config):
+  h, w = coords_map.shape[-3:-1]
+  lead = tuple(coords_map.shape[:-3])
+  grid = geo.cell_center_grid(h, w, stride,
+                              device=coords_map.device).reshape(-1, 2)
+  return solve_pnp_ransac(grid, coords_map.reshape(lead + (-1, 3)),
+                          variance_map.reshape(lead + (-1,)),
+                          valid_map.reshape(lead + (-1,)), K, generator,
+                          config)
+
+
+class GraphedSolve:
+  """A serving surface's pose solve as one CUDA graph over static buffers:
+  the x map ([T,] h, w, 3), the P map ([T,] h, w, 1), the valid map and K.
+  A surface holds one and hands it to every ``solve_pnp_from_maps`` call
+  (``graphed=``); it keeps one capture at a time, keyed by the maps'
+  shapes, dtypes and device, K's, the RANSAC config, the stride and the
+  generator.
+
+  A call with a new key solves eagerly on a side stream (the warm-up: this
+  call's result, which draws this call's block of keys from the
+  generator), then captures the solve with the generator registered to
+  the graph, so that the capture draws nothing and each replay draws the
+  next block: solve i of a surface uses the i-th block of a generator
+  seeded with its seed, as the eager solve does. Every later call with the
+  key copies the maps into the buffers and replays. The outputs of a
+  replay are the graph's buffers (``out``), which the next replay
+  overwrites: copy what is kept.
+
+  A capture is the span ``pose.capture`` and counts one ``pose.captures``
+  and one ``host.syncs`` (``torch.cuda.graph`` synchronises); a replay
+  counts one ``pose.replays``."""
+
+  def __init__(self):
+    self._key = None
+    self.graph = self.inputs = self.out = None
+
+  def solve(self, coords_map, variance_map, valid_map, K, generator, stride,
+            config):
+    """This call's solve of the maps: a replay where the kept capture has
+    its key, else the warm-up's result of a new capture."""
+    maps = (coords_map, variance_map, valid_map, K)
+    key = (tuple((tuple(t.shape), t.dtype, t.device) for t in maps),
+           generator, stride, config)
+    if key == self._key:
+      for buf, new in zip(self.inputs, maps):
+        buf.copy_(new)
+      self.graph.replay()
+      tracing.count("pose.replays")
+      return self.out
+    self._key = self.graph = self.out = None  # free the old graph first
+    with tracing.span("pose.capture"):
+      self.inputs = tuple(t.clone() for t in maps)
+      dev = coords_map.device
+      side = torch.cuda.Stream(dev)
+      side.wait_stream(torch.cuda.current_stream(dev))
+      with torch.cuda.stream(side):  # warm-up: this call's solve, eagerly
+        first = _solve_maps(*self.inputs, generator, stride, config)
+      torch.cuda.current_stream(dev).wait_stream(side)
+      graph = torch.cuda.CUDAGraph()
+      if generator is not None:  # the default one is registered anyway
+        graph.register_generator_state(generator)
+      tracing.count("pose.captures")
+      tracing.count("host.syncs")  # torch.cuda.graph synchronises first
+      # thread_local, as GraphedStep: only this thread's unsafe calls
+      # (a sync, a pageable copy) break the capture
+      with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        self.out = _solve_maps(*self.inputs, generator, stride, config)
+    self.graph, self._key = graph, key
+    return first
+
+
 def solve_pnp_from_maps(coords_map, variance_map, valid_map, K,
                         generator: torch.Generator | None = None,
                         stride: int = 8,
-                        config: RansacConfig = RansacConfig()):
+                        config: RansacConfig = RansacConfig(),
+                        graphed: GraphedSolve | None = None):
   """([T,] h, w, 3) / ([T,] h, w, 1) maps -> pose (per map); pixels are the
-  stride-cell centres used in label generation."""
+  stride-cell centres used in label generation. With ``graphed`` (a
+  serving surface's ``GraphedSolve``) the solve is that graph's replay,
+  or on a new key its capture: the outputs may then be the graph's
+  buffers, which its next replay overwrites."""
   with tracing.span("pose.solve"):
-    h, w = coords_map.shape[-3:-1]
-    lead = tuple(coords_map.shape[:-3])
-    grid = geo.cell_center_grid(h, w, stride,
-                                device=coords_map.device).reshape(-1, 2)
-    return solve_pnp_ransac(grid, coords_map.reshape(lead + (-1, 3)),
-                            variance_map.reshape(lead + (-1,)),
-                            valid_map.reshape(lead + (-1,)), K, generator,
-                            config)
+    if graphed is not None:
+      return graphed.solve(coords_map, variance_map, valid_map, K, generator,
+                           stride, config)
+    return _solve_maps(coords_map, variance_map, valid_map, K, generator,
+                       stride, config)
 
 
 def solve_pnp_from_maps_batched(coords_maps, variance_maps, valid_maps, K,

@@ -32,7 +32,8 @@ records no more and counts each one lost in ``tracing.dropped``.
 
 Counters (``count(name, n)``): ``host.syncs``, the points where the
 program waits for the device; ``filter.captures``, the filter step's
-CUDA graphs built; ``tracing.dropped``.
+CUDA graphs built; ``pose.captures`` and ``pose.replays``, the served pose
+solve's CUDA graphs built and replayed; ``tracing.dropped``.
 """
 
 from __future__ import annotations

@@ -37,7 +37,10 @@ with launches counted under replay; the batched pose solve against each
 frame's solve on the same index sets at rtol 1e-4 / atol 1e-6 on T_wc.
 The graphed FleetRelocalizer is held against the eager one at rtol = atol
 = 1e-3 with one capture across a per-slot reset and launches counted
-under replay; P3P on the card on well-conditioned triangles from known
+under replay; the graphed pose solve of both surfaces, DLT and P3P,
+against the eager surface bit for bit over frames with resets, with one
+capture and the generator's state equal after the same solves; P3P on
+the card on well-conditioned triangles from known
 poses (the CPU's candidate nearest the truth within 1e-4 of it): every
 candidate finite, the nearest within 1e-3 of the truth, as
 tests/test_torch_p3p.py holds the CPU, and within 1e-3 of the CPU's (the
@@ -868,6 +871,58 @@ def test_sequence_entry_points_move_cpu_params_to_the_card(cuda):
   assert xs.device.type == "cuda" and torch.equal(xs, want)
   same, _ = sequence.placed(params, "cuda")
   assert same is params
+
+
+# The served pose solve as one CUDA graph (pose/ransac.GraphedSolve): each
+# surface against its eager twin (graph=False, same seed) bit for bit over
+# frames with a restart (and a per-slot reset in the fleet), one capture
+# and replays after it, and the two generators in one state after the
+# same solves (the capture draws no block of keys).
+
+@pytest.mark.parametrize("solver", ["dlt", "p3p"])
+@pytest.mark.parametrize("surface", ["stream", "fleet"])
+def test_graphed_pose_solve_equals_the_eager_surface(cuda, surface, solver):
+  from kfnet_tpu_torch.eval.online import FleetRelocalizer
+  from kfnet_tpu_torch.pose import ransac
+  from kfnet_tpu_torch.utils import tracing
+  cfg = _small_configs()["default"]
+  params = kfnet.init(0, cfg, (48, 64, 3), device=cuda)
+  rcfg = ransac.RansacConfig(solver=solver)
+  B, n = 4, 9
+  ticks = np.random.default_rng(10).integers(0, 256, (n, B, 48, 64, 3),
+                                             dtype=np.uint8)
+
+  def serve(graph):
+    if surface == "stream":
+      rl = OnlineRelocalizer(params, cfg, K_SMALL, ransac_config=rcfg,
+                             seed=5, device=cuda, graph=graph)
+      tick = lambda t: rl.tick(ticks[t, 0])
+    else:
+      rl = FleetRelocalizer(params, cfg, K_SMALL, batch_size=B,
+                            ransac_config=rcfg, seed=5, device=cuda,
+                            graph=graph)
+      tick = lambda t: rl.tick(ticks[t], reset=(
+          [False, True, False, False] if t == 6 else None))
+    out = []
+    for t in range(n):
+      if t == 4:
+        rl.reset()
+      out.append(tick(t).cpu())
+    return rl, out
+
+  tracing.enable()
+  try:
+    graphed, got = serve(None)
+  finally:
+    tracing.disable()
+  counters = tracing.snapshot()["counters"]
+  eager, want = serve(False)
+  assert graphed._solver is not None and eager._solver is None
+  assert counters["pose.captures"] == 1
+  assert counters["pose.replays"] == n - 1
+  for t, (g, w) in enumerate(zip(got, want)):
+    assert torch.equal(g, w), (t, (g - w).abs().max().item())
+  assert torch.equal(graphed._gen.get_state(), eager._gen.get_state())
 
 
 def _train_data(h=48, w=64, n=6):

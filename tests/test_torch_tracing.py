@@ -15,6 +15,7 @@ numpy and kfnet_tpu_torch:
 """
 
 import collections
+import contextlib
 import json
 import unittest.mock as mock
 import warnings
@@ -246,6 +247,121 @@ def test_no_span_is_recorded_inside_a_graph_capture(traced):
   assert got["spans"] == [] and got["counters"] == {"filter.captures": 1}
 
 
+@pytest.mark.parametrize("surface", ["stream", "fleet"])
+def test_the_cpu_serves_the_eager_solve_with_its_stages(params, traced,
+                                                        surface):
+  """A surface on the CPU builds no graphed solve: each of its solves is
+  the eager one, its four stages inside it, and nothing counts a pose
+  capture or replay."""
+  if surface == "stream":
+    reloc = OnlineRelocalizer(params, CFG, K, ransac_config=RCFG,
+                              device="cpu")
+    serve = reloc.process
+  else:
+    reloc = FleetRelocalizer(params, CFG, K, batch_size=2,
+                             ransac_config=RCFG, device="cpu")
+    serve = lambda f: reloc.process(np.stack([f, f[::-1]]))
+  assert reloc._solver is None
+  for f in frames(3):
+    serve(f)
+  got = tracing.snapshot()
+  assert "pose.captures" not in got["counters"]
+  assert "pose.replays" not in got["counters"]
+  solves = [i for i, s in enumerate(got["spans"]) if s.name == "pose.solve"]
+  assert len(solves) == 3
+  for i in solves:
+    assert [s.name for s in got["spans"] if s.parent == i] == STAGES
+
+
+class _FakeGraph:
+  """``torch.cuda.CUDAGraph`` on the CPU: records the generators
+  registered to it and counts its replays (which recompute nothing)."""
+
+  def __init__(self):
+    self.generators, self.replays = [], 0
+
+  def register_generator_state(self, gen):
+    self.generators.append(gen)
+
+  def replay(self):
+    self.replays += 1
+
+
+@contextlib.contextmanager
+def _fake_capture(graph, capture_error_mode):
+  """``torch.cuda.graph`` on the CPU: the body runs eagerly, as the capture
+  records it, seen as capturing by the tracer, with the registered
+  generators' states put back after it (a capture draws nothing)."""
+  assert capture_error_mode == "thread_local"
+  states = [g.get_state() for g in graph.generators]
+  with mock.patch.object(torch.cuda, "is_initialized", return_value=True), \
+      mock.patch.object(torch.cuda, "is_current_stream_capturing",
+                        return_value=True):
+    yield
+  for g, st in zip(graph.generators, states):
+    g.set_state(st)
+
+
+@pytest.fixture
+def fake_cuda_graphs():
+  """The CUDA calls of ``GraphedSolve`` replaced so that it runs on the
+  CPU: the control flow of a capture and its replays, not their values."""
+  stream = mock.Mock()
+  with mock.patch.object(torch.cuda, "Stream", return_value=stream), \
+      mock.patch.object(torch.cuda, "current_stream", return_value=stream), \
+      mock.patch.object(torch.cuda, "stream",
+                        side_effect=lambda s: contextlib.nullcontext()), \
+      mock.patch.object(torch.cuda, "CUDAGraph", _FakeGraph), \
+      mock.patch.object(torch.cuda, "graph", _fake_capture):
+    yield
+
+
+def test_a_graphed_solve_captures_once_a_key_and_replays(traced,
+                                                         fake_cuda_graphs):
+  """Rehearsed on the CPU: the first call of a key solves eagerly (this
+  call's result, one block of draws) and captures with the generator
+  registered; later calls copy the maps into the graph's buffers and
+  replay, returning its output buffers; a new map shape, config or
+  generator captures again."""
+  Kt = torch.as_tensor(K)
+  gen = torch.Generator().manual_seed(4)
+  ref_gen = torch.Generator().manual_seed(4)
+  holder = ransac.GraphedSolve()
+  maps = random_maps(5)
+  got = ransac.solve_pnp_from_maps(*maps, Kt, gen, config=RCFG,
+                                   graphed=holder)
+  assert tracing.snapshot()["counters"] == {"pose.captures": 1,
+                                            "host.syncs": 1}
+  spans = tracing.snapshot()["spans"]
+  # the warm-up's stages; none recorded inside the capture
+  assert [s.name for s in spans] == ["pose.solve", "pose.capture"] + STAGES
+  assert holder.graph.generators == [gen]
+  tracing.disable()
+  want = ransac.solve_pnp_from_maps(*maps, Kt, ref_gen, config=RCFG)
+  assert all(torch.equal(got[k], want[k]) for k in want)
+  assert torch.equal(gen.get_state(), ref_gen.get_state())
+  tracing.enable()
+  captured = holder.graph
+  for seed in (6, 7):
+    new = random_maps(seed)
+    out = ransac.solve_pnp_from_maps(*new, Kt, gen, config=RCFG,
+                                     graphed=holder)
+    assert out is holder.out and holder.graph is captured
+    assert all(torch.equal(b, m) for b, m in zip(holder.inputs, new + (Kt,)))
+  assert captured.replays == 2
+  got = tracing.snapshot()
+  assert got["counters"] == {"pose.replays": 2}
+  assert [s.name for s in got["spans"]] == ["pose.solve"] * 2  # no stages
+  wider = tuple(torch.cat([m, m], dim=1) for m in random_maps(8))
+  other = ransac.RansacConfig(num_hypotheses=8, top_k=32)
+  for args, cfg in (((*wider, Kt, gen), RCFG), ((*maps, Kt, gen), other),
+                    ((*maps, Kt, torch.Generator().manual_seed(4)), other)):
+    ransac.solve_pnp_from_maps(*args, config=cfg, graphed=holder)
+    assert holder.graph is not captured
+    captured = holder.graph
+  assert tracing.snapshot()["counters"]["pose.captures"] == 3
+
+
 # ---- on the card ------------------------------------------------------------
 
 
@@ -262,12 +378,17 @@ def test_one_filter_capture_per_graphed_step(cuda, params, traced):
   for f in frames(4):
     reloc.process(f)
   got = tracing.snapshot()
-  assert got["counters"] == {"filter.captures": 1, "host.syncs": 4 + 1}
+  # the pose solve captured on the first frame and replayed after it
+  assert got["counters"] == {"filter.captures": 1, "pose.captures": 1,
+                             "pose.replays": 3, "host.syncs": 4 + 2}
   replays = [s for s in got["spans"] if s.name == "filter.replay"]
   assert len(replays) == 2 and all(s.device_ms > 0 for s in replays)
   capture = [s for s in got["spans"] if s.name == "filter.capture"]
   assert len(capture) == 1
   assert got["spans"][capture[0].parent].name == "online.tick"
+  capture = [s for s in got["spans"] if s.name == "pose.capture"]
+  assert len(capture) == 1
+  assert got["spans"][capture[0].parent].name == "pose.solve"
   sequence.run_filter(params, CFG, frames(3, seed=1), device=cuda)
   assert tracing.snapshot()["counters"]["filter.captures"] == 2
 
