@@ -1,14 +1,13 @@
 """The three ways a mix drives the program, each set up, warmed up and
-then run for a fixed window: one camera through
-``OnlineRelocalizer.process``, B cameras in lockstep through
-``FleetRelocalizer.process``, and recorded sequences through
-``filter.sequence.run_filter_chunked_arrays``.
+then run for a fixed window: one camera or B cameras in lockstep through
+the family's ``Server``, and recorded sequences through its
+``sequences`` runner (``families/<family>.py``).
 
 Every loop is closed: a client hands in its next frame when the previous
 answer is on the host. A loop keeps what the check needs: each frame's
-answer, and on the device copies of the posteriors (x, P) of the frames
-the check may compare, taken after the frame was answered (outside the
-latency).
+answer, and on the device what the family keeps of the frames the check
+may compare (``Server.keep``, a chunk's outputs), taken after the frame
+was answered (outside the latency).
 """
 
 from __future__ import annotations
@@ -39,17 +38,19 @@ class Record:
   # (time answered, frames, first frames) of each tick or chunk
   units: list = dataclasses.field(default_factory=list)
   # serving: per tick (row, reset (B,), T_wc (B, 4, 4), inliers (B,),
-  # solve index) on the host; on the device the posteriors (x, P), each
-  # (B, h, w, C), of the ticks where a track restarts (``firsts``) or the
-  # pose is not finite (``odd``), and (x, P) of tick i - 1 and i for the
-  # ticks a seeded reservoir kept (``kept``, the compared steps and poses)
+  # solve index) on the host; on the device what the family keeps of a
+  # tick (``Server.keep``, a tuple of (B, ...) tensors) for the ticks
+  # where a track restarts (``firsts``) or the pose is not finite
+  # (``odd``), and that of tick i - 1 and i joined for the ticks a seeded
+  # reservoir kept (``kept``, the compared steps and poses)
   ticks: list = dataclasses.field(default_factory=list)
   firsts: dict = dataclasses.field(default_factory=dict)
   odd: dict = dataclasses.field(default_factory=dict)
   kept: dict = dataclasses.field(default_factory=dict)
-  # offline: (pass, t) -> (x_{t-1}, P_{t-1}, x_t, P_t); t = 0: (x0, P0)
+  # offline: (pass, t) -> a chunk's outputs of frame t - 1 and frame t
+  # joined; t = 0: those of frame 0
   samples: dict = dataclasses.field(default_factory=dict)
-  solves: int = 0          # pose solves since the relocaliser was made
+  solves: int = 0          # ticks since the family's server was made
   trace: object = None
 
   @property
@@ -120,8 +121,9 @@ class Window:
     window_s = now - self.t_trace
     self.trace.spans.profiling = False
     self.prof.stop()
-    self.rec.trace = tracing.TraceSummary(tracing.read_trace(self.prof),
-                                          window_s, self.trace.eager_seq)
+    self.rec.trace = tracing.TraceSummary(
+        tracing.read_trace(self.prof), window_s, self.trace.eager_seq,
+        self.trace.layers, self.trace.replay_span)
     self.prof = None
     self.rec.trace_end = time.perf_counter()
     self.rec.paused_s += self.rec.trace_end - now
@@ -137,39 +139,20 @@ def _span(trace, name):
           else contextlib.nullcontext())
 
 
-def serve(sut, params, kcfg, rcfg, cfg, mix, pool, seed, seconds, device,
+def serve(family, prog, params, cfg, mix, pool, seed, seconds, device,
           trace=None) -> Record:
   """One camera (``mode`` "stream") or B in lockstep ("fleet")."""
-  mods = sut.modules()
-  online = mods["online"]
-  K = generator.intrinsics(mix, "cpu").numpy()
+  server = family.Server(prog, params, cfg, mix, pool, seed, device)
   n_pool, B = pool.shape[0], pool.shape[1]
   fleet = mix["mode"] == "fleet"
-  if fleet:
-    reloc = online.FleetRelocalizer(params, kcfg, K, batch_size=B,
-                                    ransac_config=rcfg,
-                                    stride=cfg["pose_stride"], seed=seed,
-                                    pipeline_depth=mix["pipeline_depth"],
-                                    device=device)
-  else:
-    reloc = online.OnlineRelocalizer(params, kcfg, K, ransac_config=rcfg,
-                                     stride=cfg["pose_stride"], seed=seed,
-                                     device=device)
   solves = 0
 
   def step(row, reset):
     """Hand in one tick's frames; (T_wc (B, 4, 4), inliers (B,))."""
     nonlocal solves
-    if fleet:
-      poses, info = reloc.process(pool[row], reset=reset)
-      inl = info["num_inliers"]
-    else:
-      if reset[0]:
-        reloc.reset()
-      pose, info = reloc.process(pool[row, 0])
-      poses, inl = pose[None], np.array([info["num_inliers"]])
+    out = server.tick(row, reset)
     solves += 1
-    return poses, inl
+    return out
 
   # warm-up: the first tick (eager), the capture, replays, and for one
   # camera its reset path; the window goes on from there
@@ -201,10 +184,8 @@ def serve(sut, params, kcfg, rcfg, cfg, mix, pool, seed, seconds, device,
       t0 = time.perf_counter()
       poses, inl = step(row, reset)
       lat = time.perf_counter() - t0
-    x, P = reloc.state[0], reloc.state[1]
     with _span(trace, "clone"):
-      cur = (x.reshape((B,) + tuple(x.shape[-3:])).clone(),
-             P.reshape((B,) + tuple(P.shape[-3:])).clone())
+      cur = server.keep()
     i = len(rec.ticks)
     poses = np.asarray(poses, np.float32)
     rec.latencies.extend([lat] * B)
@@ -230,7 +211,8 @@ def serve(sut, params, kcfg, rcfg, cfg, mix, pool, seed, seconds, device,
 
 
 def offline_picks(mix, seed):
-  """The frames of an offline sequence whose filter step is compared."""
+  """The frames of an offline sequence whose outputs the check may
+  compare (kept with those of the frame before)."""
   rng = np.random.default_rng(generator.camera_seed(seed, 1 << 20))
   return sorted(rng.choice(np.arange(1, mix["pool_frames"]),
                            mix["checks"]["step"], replace=False).tolist())
@@ -263,10 +245,11 @@ class Ahead:
       self.rec.first_frames += firsts
 
 
-def offline(sut, params, kcfg, cfg, mix, pool, seed, seconds, device,
+def offline(family, prog, params, cfg, mix, pool, seed, seconds, device,
             trace=None) -> Record:
-  """Recorded sequences of ``pool_frames`` frames, each filtered from its
-  frame 0 in chunks of ``chunk_size`` from uint8 host frames.
+  """Recorded sequences of ``pool_frames`` frames, each run from its
+  frame 0 by the family's ``sequences`` runner, in chunks of
+  ``chunk_size`` from uint8 host frames.
 
   The host launches ahead of the device: it waits only for the chunk
   ``ahead_chunks`` behind the newest (``ahead_chunks_traced`` in the
@@ -276,11 +259,11 @@ def offline(sut, params, kcfg, cfg, mix, pool, seed, seconds, device,
   is about a tenth of a second, one chunk or so.) A chunk
   counts once an event recorded after it has passed. When the window's
   time is up nothing more is launched; the clock is read after the wait
-  for all that was, and every frame launched counts. The generator
+  for all that was, and every frame launched counts. The runner
   launches chunk k + 1 before it yields chunk k, so a window that closes
   inside a sequence holds that chunk too.
   """
-  seq = sut.modules()["sequence"]
+  sequence = family.sequences(prog, params, mix, device)
   n = pool.shape[0]
   chunk = mix["chunk_size"]
   picks = offline_picks(mix, seed)
@@ -289,11 +272,10 @@ def offline(sut, params, kcfg, cfg, mix, pool, seed, seconds, device,
     return (pool[i, 0] for i in range(count))
 
   def run(count):
-    return seq.run_filter_chunked_arrays(params, kcfg, frames(count),
-                                         chunk_size=chunk, device=device)
+    return sequence(frames(count))
 
-  for xs, Ps in run(mix["warmup"]):  # first chunk, a full one, a tail
-    float(xs[-1, 0, 0, 0])
+  for out in run(mix["warmup"]):  # first chunk, a full one, a tail
+    float(out[0][-1].flatten()[0])
   rec = Record(mix["mode"])
   ahead = Ahead(rec, device)
   win = Window(seconds, rec, trace)
@@ -301,18 +283,18 @@ def offline(sut, params, kcfg, cfg, mix, pool, seed, seconds, device,
   pass_no, over = 0, False
   while not over:
     at, prev = 0, None
-    for xs, Ps in run(n):
-      k = xs.shape[0]
+    for out in run(n):
+      k = out[0].shape[0]
       with _span(trace, "clone"):
         if at == 0:
-          rec.samples[(pass_no, 0)] = (xs[0].clone(), Ps[0].clone())
+          rec.samples[(pass_no, 0)] = tuple(a[0].clone() for a in out)
         for t in picks:
           if at <= t < at + k:
             i = t - at
-            xp, Pp = (xs[i - 1], Ps[i - 1]) if i > 0 else prev
-            rec.samples[(pass_no, t)] = (xp.clone(), Pp.clone(),
-                                         xs[i].clone(), Ps[i].clone())
-      prev = (xs[-1], Ps[-1])
+            before = tuple(a[i - 1] for a in out) if i > 0 else prev
+            rec.samples[(pass_no, t)] = (tuple(a.clone() for a in before)
+                                         + tuple(a[i].clone() for a in out))
+      prev = tuple(a[-1] for a in out)
       first = int(at == 0)
       at += k
       if at < n:  # the chunk launched before this one was yielded

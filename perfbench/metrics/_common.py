@@ -4,8 +4,6 @@ its run holds nothing for it to read (the metric is then left out)."""
 
 from __future__ import annotations
 
-from perfbench import flops
-
 
 def post_trace_units(ctx):
   """(frames, first frames, seconds) answered after the traced part of
@@ -28,14 +26,15 @@ def post_trace_rate(ctx):
 
 def mfu(ctx):
   """The whole step's share of the card's dense bf16 peak, in %: the
-  analytic FLOPs of the frames answered after the traced part over its
-  length."""
+  family's analytic FLOPs (``frame_flops``) of the frames answered after
+  the traced part over its length."""
   got = post_trace_units(ctx)
   if got is None or ctx.peaks is None:
     return None
   frames, firsts, seconds = got
-  work = (firsts * flops.frame_flops(ctx.cfg, ctx.frame_shape, first=True)
-          + (frames - firsts) * flops.frame_flops(ctx.cfg, ctx.frame_shape))
+  frame_flops = ctx.family.frame_flops
+  work = (firsts * frame_flops(ctx.cfg, ctx.frame_shape, first=True)
+          + (frames - firsts) * frame_flops(ctx.cfg, ctx.frame_shape))
   return 100.0 * work / seconds / ctx.peaks["bf16"]
 
 

@@ -1,9 +1,9 @@
 """The convolutions' share of their roofline, in %: the least time the
 traced part's frames' convs could take (each conv the larger of FLOPs at
-peak and bytes at bandwidth, ``flops.conv_bound_s``) over the device time
-of the kernels that only the convs launch (named in one eager frame)."""
+peak and bytes at bandwidth, the KFNet family's ``conv_bound_s``) over the
+device time of the kernels that only the convs launch (named in one eager
+frame)."""
 
-from perfbench import flops
 from perfbench.metrics._common import traced_frames
 
 
@@ -15,7 +15,8 @@ def read(ctx):
   steps, firsts = traced_frames(ctx)
   if not seconds or not steps + firsts:
     return None
-  bound = (steps * flops.conv_bound_s(ctx.cfg, ctx.frame_shape, ctx.peaks)
-           + firsts * flops.conv_bound_s(ctx.cfg, ctx.frame_shape,
-                                         ctx.peaks, first=True))
+  conv_bound_s = ctx.family.conv_bound_s
+  bound = (steps * conv_bound_s(ctx.cfg, ctx.frame_shape, ctx.peaks)
+           + firsts * conv_bound_s(ctx.cfg, ctx.frame_shape, ctx.peaks,
+                                   first=True))
   return 100.0 * bound / seconds

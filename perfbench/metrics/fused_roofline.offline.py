@@ -1,8 +1,7 @@
 """The fused warp + Kalman update kernel's share of its roofline, in %:
 the larger of its bytes at bandwidth and its operations at the float32
-peak (``flops.fused_bound_s``) over its device time, per launch."""
-
-from perfbench import flops
+peak (the KFNet family's ``fused_bound_s``) over its device time, per
+launch."""
 
 
 def read(ctx):
@@ -13,6 +12,6 @@ def read(ctx):
   launches = t.span_counts["filter.replay"]
   if not seconds or not launches:
     return None
-  bound = flops.fused_bound_s(ctx.cfg, ctx.frame_shape, ctx.peaks,
-                              maps=ctx.batch)
+  bound = ctx.family.fused_bound_s(ctx.cfg, ctx.frame_shape, ctx.peaks,
+                                   maps=ctx.batch)
   return 100.0 * bound * launches / seconds

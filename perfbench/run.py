@@ -4,17 +4,21 @@
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
+The cell's configuration names its model family, whose module
+(``families/<family>.py``) holds everything that depends on the model.
 Set-up makes the cell's weights from the seed on the card, renders its
 traffic there into pinned host memory, builds the program's objects and
 warms up every shape the traffic uses; then the window runs for
-``--seconds``; then ``check.py`` compares the window's answers with the
-plain reference. The last line of standard output is one JSON object
-(``correct``, ``attempted``, ``failed``, ``metrics``, ``device``, with
-``--trace 1`` ``breakdown``, and last ``checks``: each number compared
-beside its limit); the numbers compared are also the last lines of
+``--seconds``; then the family's check compares the window's answers with
+its plain reference, and ``check.judge`` holds them to the cell's limits.
+The last line of standard output is one JSON object (``correct``,
+``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
+``breakdown``, and last ``checks``: each number compared beside its
+limit); the numbers compared are also the last lines of
 standard error. Without a CUDA device, with fewer than the cell asks for,
-or without the program beside this folder, it exits non-zero and prints
-no result. Builds and caches stay inside the checkout (``build/``).
+with a configuration whose family has no module, or without the program
+beside this folder, it exits non-zero and prints no result. Builds and
+caches stay inside the checkout (``build/``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import types  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+# where families/<family>.py is looked for, in order
+FAMILY_DIRS = [os.path.join(HERE, "families")]
 BANNED = ("jax", "jaxlib", "flax", "kfnet_tpu")
 TRACE_SECONDS = 2.0
 
@@ -98,29 +104,56 @@ def nvidia_smi() -> str:
     return f"nvidia-smi failed: {e}"
 
 
-def attribution(sut, params, kcfg, frame_shape, device, spans):
+def family_file(cfg: dict) -> str:
+  """The module of the configuration's family, the first found in
+  ``FAMILY_DIRS``; LookupError where it names none or none is found."""
+  name = cfg.get("family")
+  if not isinstance(name, str) or not name.isidentifier():
+    raise LookupError(f"configuration {cfg.get('name')!r} names no family")
+  for d in FAMILY_DIRS:
+    path = os.path.join(d, f"{name}.py")
+    if os.path.isfile(path):
+      return path
+  raise LookupError(f"family {name!r} of configuration {cfg.get('name')!r}"
+                    f" has no module in {FAMILY_DIRS}")
+
+
+def load_family(cfg: dict):
+  """The configuration's family module, loaded once a process as
+  ``perfbench.families.<family>``."""
+  path = family_file(cfg)
+  key = "perfbench.families." + cfg["family"]
+  mod = sys.modules.get(key)
+  if mod is not None and os.path.abspath(mod.__file__) == path:
+    return mod
+  spec = importlib.util.spec_from_file_location(key, path)
+  mod = importlib.util.module_from_spec(spec)
+  sys.modules[key] = mod
+  try:
+    spec.loader.exec_module(mod)
+  except BaseException:
+    del sys.modules[key]
+    raise
+  return mod
+
+
+def attribution(family, prog, params, frame_shape, device, spans):
   """[(kernel name, layer or None)] in launch order, from the trace of one
-  eager filter step under the layer spans."""
+  eager step of the family under the layer spans."""
   import torch
   from perfbench import tracing
-  mods = sut.modules()
-  kfnet = mods["kfnet"]
-  gen = torch.Generator(device=device).manual_seed(0)
-  frames = torch.randint(0, 256, (2,) + tuple(frame_shape), generator=gen,
-                         device=device, dtype=torch.uint8)
-  image = kfnet.preprocess_images(kcfg, frames)
-  x, P, feat = kfnet.first_step(params, kcfg, image[0])
+  step = family.attribution_step(prog, params, frame_shape, device)
   sync = (lambda: torch.cuda.synchronize(device)
           if device.type == "cuda" else None)
-  kfnet.filter_step(params, kcfg, x, P, feat, image[1])  # warm
+  step()  # warm
   sync()
   prof = tracing.profile()
   spans.profiling = True
   with prof:
-    kfnet.filter_step(params, kcfg, x, P, feat, image[1])
+    step()
     sync()
   spans.profiling = False
-  return tracing.eager_sequence(tracing.read_trace(prof))
+  return tracing.eager_sequence(tracing.read_trace(prof), family.LAYERS)
 
 
 def run_cell(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
@@ -129,20 +162,21 @@ def run_cell(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
   """One run of a cell on ``device``: set-up, window, check. Returns the
   result's dict (without ``device``) and the parts of the set-up."""
   import torch
-  from perfbench import check, loops, flops, sut, tracing, weights
+  from perfbench import check, loops, flops, tracing
   from perfbench.traffic import generator
 
   parts = {}
   t = time.perf_counter()
-  sut.modules()
+  family = load_family(cfg)
+  family.modules()
   parts["import_program_s"] = time.perf_counter() - t
   t = time.perf_counter()
-  sut.build_kernels(device)
+  family.build_kernels(device)
   parts["build_kernels_s"] = time.perf_counter() - t
   frame_shape = tuple(cfg["frame"])
   t = time.perf_counter()
-  params = weights.make(cfg, seed, device)
-  kcfg, rcfg = sut.kfnet_config(cfg), sut.ransac_config(cfg)
+  params = family.make_weights(cfg, seed, device)
+  prog = family.program_config(cfg)
   if device.type == "cuda":
     torch.cuda.synchronize(device)
   parts["weights_s"] = time.perf_counter() - t
@@ -153,10 +187,12 @@ def run_cell(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
   if trace:
     t = time.perf_counter()
     spans = tracing.Spans()
-    restore = tracing.patch(spans, sut.modules())
-    tr = types.SimpleNamespace(spans=spans, trace_s=min(TRACE_SECONDS,
-                                                        seconds / 4))
-    tr.eager_seq = attribution(sut, params, kcfg, frame_shape, device, spans)
+    restore = tracing.patch(spans, family)
+    tr = types.SimpleNamespace(
+        spans=spans, trace_s=min(TRACE_SECONDS, seconds / 4),
+        layers=family.LAYERS, replay_span=family.REPLAY_SPAN,
+        eager_seq=attribution(family, prog, params, frame_shape, device,
+                              spans))
     spans.times.clear()
     spans.events.clear()
     parts["attribution_s"] = time.perf_counter() - t
@@ -164,11 +200,11 @@ def run_cell(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
     torch.cuda.reset_peak_memory_stats(device)
   t = time.perf_counter()
   if mix["mode"] == "offline":
-    rec = loops.offline(sut, params, kcfg, cfg, mix, pool, seed, seconds,
+    rec = loops.offline(family, prog, params, cfg, mix, pool, seed, seconds,
                         device, tr)
   else:
-    rec = loops.serve(sut, params, kcfg, rcfg, cfg, mix, pool, seed,
-                      seconds, device, tr)
+    rec = loops.serve(family, prog, params, cfg, mix, pool, seed, seconds,
+                      device, tr)
   parts["program_and_warmup_s"] = rec.t0 - t
   memory_peak = (torch.cuda.max_memory_allocated(device)
                  if device.type == "cuda" else 0)
@@ -188,7 +224,8 @@ def run_cell(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
           metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
       ctx = types.SimpleNamespace(
-          rec=rec, spans=tr.spans, cfg=cfg, mix=mix, frame_shape=frame_shape,
+          rec=rec, spans=tr.spans, family=family, cfg=cfg, mix=mix,
+          frame_shape=frame_shape,
           batch=mix["cameras"], peaks=(flops.peaks_for(
               torch.cuda.get_device_name(device))
               if device.type == "cuda" else None))
@@ -225,11 +262,11 @@ def run_cell(cell: dict, cfg: dict, mix: dict, seed: int, seconds: float,
   if device.type == "cuda":
     torch.cuda.empty_cache()
   t = time.perf_counter()
-  numbers = check.compare(cfg, mix, params, pool, rec, seed, device)
-  odd, failed = check.failures(cfg, mix, rec, seed, device)
+  numbers = family.compare(cfg, mix, params, pool, rec, seed, device)
+  odd, failed = family.failures(cfg, mix, rec, seed, device)
   parts["check_s"] = time.perf_counter() - t
   log(json.dumps({"poses_not_finite": odd, "of_them_failed": failed}))
-  correct, shown = check.judge(numbers, limits)
+  correct, shown = check.judge(numbers, limits, family.NUMBERS)
   result["failed"] = failed
   result["correct"] = correct and failed == 0
   result["numbers"] = numbers
@@ -253,6 +290,12 @@ def main(argv=None) -> int:
   if cell is None:
     log(f"no workload {args.workload!r} in BENCHMARK.json")
     return 2
+  cfg = load_config(bench, cell["config"])
+  try:
+    family_file(cfg)
+  except LookupError as e:
+    log(str(e))
+    return 2
   t = time.perf_counter()
   import torch
   torch.set_num_threads(1)  # the host's cores are shared: one thread
@@ -270,7 +313,6 @@ def main(argv=None) -> int:
   early["cuda_query_and_nvidia_smi_s"] = time.perf_counter() - t
   from perfbench import check
   from perfbench.traffic import generator
-  cfg = load_config(bench, cell["config"])
   mix = generator.load(cell["traffic"])
   limits = check.load_limits(cell["name"])
   device = torch.device("cuda", 0)

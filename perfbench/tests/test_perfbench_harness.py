@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import check, control, loops, run, tracing, weights
+from perfbench import check, loops, run, tracing
+from perfbench.families import kfnet as family
 from perfbench.tests import tiny
 from perfbench.traffic import generator
 
@@ -31,11 +32,12 @@ def test_every_name_has_its_file():
   for c in BENCH["configs"]:
     cfg = run.load_config(BENCH, c["name"])
     assert cfg["name"] == c["name"] and c["reduced"] == []
-    assert weights.count(cfg) > 26e6  # the paper's widths
+    assert run.load_family(cfg) is family
+    assert family.count(cfg) > 26e6  # the paper's widths
   for w in BENCH["workloads"]:
     assert generator.load(w["traffic"])["mode"] in ("stream", "fleet",
                                                     "offline")
-    assert set(check.load_limits(w["name"])) <= set(check.NUMBERS)
+    assert set(check.load_limits(w["name"])) <= set(family.NUMBERS)
   for m in BENCH["per_layer"]:
     assert callable(run.load_reader(m["name"]))
     assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
@@ -55,6 +57,42 @@ def test_unknown_names_raise():
     generator.load("no-such-mix")
   with pytest.raises(FileNotFoundError):
     run.load_reader("no.such.metric")
+  with pytest.raises(LookupError, match="names no family"):
+    run.family_file({"name": "x"})
+  with pytest.raises(LookupError, match="has no module"):
+    run.family_file({"name": "x", "family": "no_such_family"})
+
+
+@pytest.mark.parametrize("family", [None, "no_such_family"])
+def test_a_config_without_a_family_module_stops_the_run(monkeypatch, capsys,
+                                                        family):
+  real = run.load_config
+
+  def config(bench, name):
+    cfg = real(bench, name)
+    del cfg["family"]
+    if family is not None:
+      cfg["family"] = family
+    return cfg
+
+  monkeypatch.setattr(run, "load_config", config)
+  rc = run.main(["--workload", "gn-stream1", "--seed", "1", "--seconds",
+                 "1", "--trace", "0"])
+  out = capsys.readouterr()
+  assert rc == 2 and out.out == ""
+  assert "family" in out.err
+
+
+def test_judge_takes_the_familys_order_and_refuses_unknown_names():
+  limits = {"pose_mismatch": {"limit": 0.05}, "meas_z_rel": {"limit": 0.08}}
+  numbers = {"meas_z_rel": 0.01, "pose_mismatch": 0.0, "other": 0.0}
+  ok, shown = check.judge(numbers, limits, family.NUMBERS)
+  assert ok and list(shown) == ["meas_z_rel", "pose_mismatch"]
+  # a number the family computes but does not define as compared
+  ok, shown = check.judge(numbers, dict(limits, other={"limit": 1.0}),
+                          family.NUMBERS)
+  assert not ok and list(shown)[-1] == "other"
+  assert shown["other"] == {"value": None, "limit": 1.0}
 
 
 # ---- arithmetic ------------------------------------------------------------
@@ -86,7 +124,7 @@ def test_replayed_kernels_take_the_layer_of_their_place():
   eager = {"ops": [("cast", 0, 1, "groupnorm", 1), ("gemm", 1, 1, "conv", 2),
                    ("sum", 3, 1, "groupnorm", 3), ("cast", 4, 1, None, 4),
                    ("Memcpy DtoD", 5, 1, None, 5), ("step", 6, 1, "fused", 6)]}
-  seq = tracing.eager_sequence(eager)
+  seq = tracing.eager_sequence(eager, family.LAYERS)
   assert seq == [("cast", "groupnorm"), ("gemm", "conv"), ("sum", "groupnorm"),
                  ("cast", None), ("step", "fused")]
   # the replay adds a frame copy in front and a carry copy behind; the same
@@ -100,13 +138,15 @@ def test_replayed_kernels_take_the_layer_of_their_place():
 def _ctx(trace_ops, ranges, eager_seq, cfg, mix, batch=1):
   trace = {"ops": trace_ops,
            "ranges": [("trace", 0.0, 1e6)] + ranges}
-  summary = tracing.TraceSummary(trace, 1.0, eager_seq)
+  summary = tracing.TraceSummary(trace, 1.0, eager_seq, family.LAYERS,
+                                 family.REPLAY_SPAN)
   rec = loops.Record("offline", t0=0.0, t1=12.0, trace_end=2.0)
   rec.units = [(1.0, 10, 1), (3.0, 100, 0), (12.0, 100, 0)]
   rec.trace = summary
   spans = tracing.Spans()
   return types.SimpleNamespace(
-      rec=rec, spans=spans, cfg=cfg, mix=mix, frame_shape=(480, 640, 3),
+      rec=rec, spans=spans, family=family, cfg=cfg, mix=mix,
+      frame_shape=(480, 640, 3),
       batch=batch,
       peaks={"bf16": 989e12, "fp32": 67e12, "hbm_bytes": 3.35e12})
 
@@ -124,21 +164,20 @@ def test_readers_on_a_synthetic_trace():
          ("fused_filter_kernel", "fused")]
   ctx = _ctx(ops, ranges, seq, cfg, mix)
   assert ctx.rec.trace.layer_shares()["replay_kernels_matched"] == 1.0
-  from perfbench import flops
   peaks = ctx.peaks
   conv = run.load_reader("conv_roofline.offline")(ctx)
   assert conv == pytest.approx(
-      100 * flops.conv_bound_s(cfg, (480, 640), peaks) / 400e-6)
+      100 * family.conv_bound_s(cfg, (480, 640), peaks) / 400e-6)
   assert run.load_reader("groupnorm.device_ms.offline")(ctx) == 0.1
   fused = run.load_reader("fused_roofline.offline")(ctx)
   assert fused == pytest.approx(
-      100 * 4800 * flops.FUSED_BYTES_PER_PIXEL / 3.35e12 / 2.5e-6)
+      100 * 4800 * family.FUSED_BYTES_PER_PIXEL / 3.35e12 / 2.5e-6)
   assert run.load_reader("pose.solve_kernels.serve")(ctx) == 1.0
   idle = run.load_reader("device.idle_share.offline")(ctx)
   assert idle == pytest.approx(100 * (1 - 504e-6))
   mfu = run.load_reader("mfu.offline")(ctx)
   assert mfu == pytest.approx(
-      100 * 200 * flops.frame_flops(cfg, (480, 640)) / 10.0 / 989e12)
+      100 * 200 * family.frame_flops(cfg, (480, 640)) / 10.0 / 989e12)
   for name in ("online.tick_host_ms.serve", "pose.solve_host_ms.serve"):
     assert run.load_reader(name)(ctx) is None  # no spans: left out
 
@@ -207,15 +246,12 @@ def test_a_sound_run_is_correct(cell):
 def test_the_control_is_not_correct(cell):
   cfg, mix = tiny.config(cell), tiny.mix(cell)
   seed = 17
-  params = weights.make(cfg, seed, CPU)
+  params = family.make_weights(cfg, seed, CPU)
   pool = generator.frames(mix, seed, tuple(cfg["frame"]), CPU)
-  if mix["mode"] == "offline":
-    rec = control.offline_control(cfg, mix, params, pool, seed, CPU,
-                                  mix["pool_frames"])
-  else:
-    rec = control.serve_control(cfg, mix, params, pool, seed, CPU, 40)
-  numbers = check.compare(cfg, mix, params, pool, rec, seed, CPU)
-  correct, shown = check.judge(numbers, tiny.limits(cell))
+  rec = family.control(cfg, mix, params, pool, seed, CPU, 40,
+                      mix["pool_frames"])
+  numbers = family.compare(cfg, mix, params, pool, rec, seed, CPU)
+  correct, shown = check.judge(numbers, tiny.limits(cell), family.NUMBERS)
   assert not correct, shown
 
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import flops, sut, weights
+from perfbench.families import kfnet as family
 from perfbench.reference import kfnet_ref as ref
 from perfbench.tests import tiny
 from perfbench.traffic import generator, render
@@ -31,7 +31,7 @@ def close(a, b, tol=1e-4):
 @pytest.fixture(params=["gn-stream1", "nonorm-fleet4"])
 def net(request):
   cfg = tiny.config(request.param)
-  return cfg, sut.kfnet_config(cfg), weights.make(cfg, 7, CPU)
+  return cfg, family.kfnet_config(cfg), family.make_weights(cfg, 7, CPU)
 
 
 def test_weights_tree_is_the_programs(net):
@@ -43,7 +43,7 @@ def test_weights_tree_is_the_programs(net):
   assert shapes(params) == shapes(theirs)
   assert (L.tree_map(lambda x: None, params)
           == L.tree_map(lambda x: None, theirs))
-  assert weights.count(cfg) == L.param_count(theirs)
+  assert family.count(cfg) == L.param_count(theirs)
 
 
 def test_scoordnet_and_encoder(net):
@@ -155,9 +155,9 @@ def test_flop_count_is_the_programs():
   from perfbench import run
   bench = run.load_benchmark(tiny.ROOT)
   cfg = run.load_config(bench, "kfnet-gn-640x480")
-  mine = flops.frame_flops(cfg, (480, 640))
+  mine = family.frame_flops(cfg, (480, 640))
   assert mine == pytest.approx(
       theirs.filter_step_flops(kfnet.KFNetConfig(), 480, 640), rel=1e-12)
   assert mine == pytest.approx(241.7e9, rel=1e-3)
-  first = flops.frame_flops(cfg, (480, 640), first=True)
+  first = family.frame_flops(cfg, (480, 640), first=True)
   assert first < mine

@@ -1,10 +1,12 @@
 """The readers of the program's own spans and counters
-(``metrics/_program.py`` and the nine metrics on it): each on a synthetic
+(``metrics/_program.py`` and the five metrics on it): each on a synthetic
 trace summary and a synthetic session of the program's tracer, the join
 of the two clocks and the overlap of idle gaps with spans included; None
 where the program has no tracer or its session holds nothing; and a tiny
 traced run on the CPU of a serving cell and an offline cell, in which
-each of the cell's new metrics reads a value."""
+each of the cell's new metrics reads a value. Beside them the reader of
+the pose solve's device time (``pose.solve_device_ms.serve``) on a
+synthetic trace: one extent of kernels a solve span."""
 
 from __future__ import annotations
 
@@ -19,9 +21,7 @@ from perfbench.metrics import _program
 from perfbench.tests import tiny
 
 BENCH = run.load_benchmark(tiny.ROOT)
-NEW = {"serve": ["pose.draw_host_ms.serve", "pose.hypothesize_host_ms.serve",
-                 "pose.score_host_ms.serve", "pose.refine_host_ms.serve",
-                 "pose.idle_share.serve", "online.wait_host_ms.serve",
+NEW = {"serve": ["pose.idle_share.serve", "online.wait_host_ms.serve",
                  "online.host_syncs.serve"],
        "offline": ["sequence.stage_host_ms.offline",
                    "sequence.stage_idle_share.offline"]}
@@ -82,9 +82,6 @@ def test_the_clock_join_and_the_overlap():
 def test_the_serving_readers_on_a_synthetic_session():
   ctx = serving_ctx()
   read = lambda name: run.load_reader(name)(ctx)
-  # each stage: 1, 2, 3, 4 ms in each of the two solves
-  for k, name in enumerate(NEW["serve"][:4]):
-    assert read(name) == pytest.approx(k + 1.0)
   # solves at 5-35 and 55-85 ms; the device idles 2-30, 50-90 ms: idle
   # under a solve 5-30 and 55-85 ms, 55 ms of the part's 100
   assert read("pose.idle_share.serve") == pytest.approx(55.0)
@@ -130,6 +127,64 @@ def test_the_metrics_are_declared_for_their_cells():
     for name in NEW[kind]:
       assert per_layer[name]["workloads"] == cells
       assert per_layer[name]["better"] == "lower"
+  m = per_layer[SOLVE_MS]
+  assert (m["unit"], m["better"], m["source"], m["layer"], m["moves"],
+          m["workloads"]) == ("ms", "lower", "device_trace", "pose",
+                              "pose_ms_p95", ["gn-stream1", "nonorm-fleet4"])
+  for stage in ("draw", "hypothesize", "score", "refine"):
+    assert f"pose.{stage}_host_ms.serve" not in per_layer
+
+
+SOLVE_MS = "pose.solve_device_ms.serve"
+
+
+def solve_trace_ctx():
+  """A 100 ms part with three solve spans, launched under each: 5-10 ms a
+  graph launch whose kernels run 6-9.5 ms (a copy in before them, 5.5-6
+  ms, left out); 40-45 ms eager launches whose kernels run 41-47 ms; 80-85
+  ms a span that launches only a fill. Kernels launched outside a solve
+  (a step at 20 ms) and a solve cut by the part's end (95-105 ms) count
+  for none."""
+  spans = [("pose.solve", LO + 5e3, LO + 10e3),
+           ("pose.solve", LO + 40e3, LO + 45e3),
+           ("pose.solve", LO + 80e3, LO + 85e3),
+           ("pose.solve", LO + 95e3, LO + 105e3)]
+
+  def k(name, start_ms, length_ms, owner, launch_ms, corr):
+    return (name, LO + start_ms * 1e3, length_ms * 1e3, owner, corr,
+            LO + launch_ms * 1e3)
+
+  ops = [k("Memcpy DtoD", 5.5, 0.5, "pose.solve", 5.2, 1),
+         k("dlt", 6.0, 1.0, "pose.solve", 6.0, 2),
+         k("score", 7.5, 2.0, "pose.solve", 6.0, 2),
+         k("step", 20.0, 5.0, "filter.replay", 20.0, 3),
+         k("topk", 41.0, 1.0, "pose.solve", 40.5, 4),
+         k("lm", 45.0, 2.0, "pose.solve", 44.0, 5),
+         k("Memset", 81.0, 0.1, "pose.solve", 80.5, 6),
+         k("late", 96.0, 1.0, "pose.solve", 96.0, 7)]
+  trace = {"ops": ops, "ranges": [("trace", LO, LO + 100e3)] + spans}
+  rec = loops.Record("stream", t0=T0, t1=T0 + 1.0, trace_end=T0 + 0.2)
+  rec.trace = tracing.TraceSummary(trace, 0.1, [])
+  return types.SimpleNamespace(rec=rec)
+
+
+def test_the_solve_device_time_on_a_synthetic_trace():
+  ctx = solve_trace_ctx()
+  groups = ctx.rec.trace.launched_in_each("pose.solve")
+  assert [[o[0] for o in g] for g in groups] == [
+      ["Memcpy DtoD", "dlt", "score"], ["topk", "lm"], ["Memset"]]
+  # (9.5 - 6) and (47 - 41) ms; the span with only a fill counts for none
+  assert run.load_reader(SOLVE_MS)(ctx) == pytest.approx((3.5 + 6.0) / 2)
+
+
+def test_the_solve_device_time_reads_none_without_solve_kernels():
+  ctx = solve_trace_ctx()
+  ctx.rec.trace.ops = [o for o in ctx.rec.trace.ops
+                       if o[0].startswith(("Memcpy", "Memset"))]
+  assert run.load_reader(SOLVE_MS)(ctx) is None
+  assert run.load_reader(SOLVE_MS)(ctx_of([op(0, 1)], [], {})) is None
+  ctx.rec.trace = None
+  assert run.load_reader(SOLVE_MS)(ctx) is None
 
 
 @pytest.mark.parametrize("cell,kind", [("gn-stream1", "serve"),

@@ -1,11 +1,12 @@
 """Spans, CUDA events and the profiler trace of a ``--trace 1`` run.
 
 Spans come from the benchmark's own wrappers around the calls into each
-layer of the program (``patch``): module and class attributes replaced
-for the traced run only, and put back after it. A span records its host
-times, and while the profiler runs it is also a ``record_function`` range
-named ``perfbench.<span>``, so the trace can say which span launched a
-kernel and what the host was doing while the device idled.
+layer of the program (``patch``, from the family's ``PATCHES`` and
+``layer_patches``): module and class attributes replaced for the traced
+run only, and put back after it. A span records its host times, and
+while the profiler runs it is also a ``record_function`` range named
+``perfbench.<span>``, so the trace can say which span launched a kernel
+and what the host was doing while the device idled.
 
 The trace is read from ``torch.profiler``'s chrome export (CUPTI): device
 operations (kernels, copies, fills) with their times and correlation ids,
@@ -14,6 +15,7 @@ the runtime calls that launched them, and the ranges.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import json
@@ -75,17 +77,7 @@ class Spans:
     return [a.elapsed_time(b) for a, b in pairs]
 
 
-# (module key in sut.modules(), attribute path, span name, CUDA events)
-PATCHES = (
-    ("online", "OnlineRelocalizer.tick", "online.tick", False),
-    ("online", "FleetRelocalizer.tick", "online.tick", False),
-    ("ransac", "solve_pnp_from_maps", "pose.solve", False),
-    ("sequence", "GraphedStep.replay", "filter.replay", True),
-    ("kfnet", "first_step", "filter.first", False),
-)
-
-
-class _Proxy:
+class Proxy:
   """A module as one of the program's modules sees it, with some of its
   functions under spans (the module itself is left as it is)."""
 
@@ -97,35 +89,24 @@ class _Proxy:
     return getattr(self._module, name)
 
 
-def patch(spans: Spans, mods: dict):
-  """Wrap the program's layer entries in spans; returns the undo."""
+def patch(spans: Spans, family):
+  """Wrap the program's layer entries in spans: the family's ``PATCHES``,
+  then its ``layer_patches``; returns the undo."""
   undo = []
 
   def put(owner, attr, value):
     undo.append((owner, attr, getattr(owner, attr)))
     setattr(owner, attr, value)
 
-  for key, path, name, events in PATCHES:
+  mods = family.modules()
+  for key, path, name, events in family.PATCHES:
     owner = mods[key]
     *parents, attr = path.split(".")
     for p in parents:
       owner = getattr(owner, p)
     put(owner, attr, spans.wrap(name, getattr(owner, attr), events))
-  layers, kfnet = mods["layers"], mods["kfnet"]
-  F = layers.F
-  put(layers, "F", _Proxy(F, {
-      "conv2d": spans.wrap("conv", F.conv2d),
-      "conv_transpose2d": spans.wrap("conv", F.conv_transpose2d)}))
-  fused = kfnet.fused_filter
-  put(kfnet, "fused_filter", _Proxy(fused, {
-      "fused_filter_step": spans.wrap("fused", fused.fused_filter_step)}))
-  group_norm = layers.group_norm
-
-  def traced_group_norm(*args, **kwargs):
-    layer = group_norm(*args, **kwargs)
-    return layers.Layer(layer.init, spans.wrap("groupnorm", layer.apply))
-
-  put(layers, "group_norm", traced_group_norm)
+  for owner, attr, value in family.layer_patches(spans, mods):
+    put(owner, attr, value)
 
   def restore():
     for owner, attr, value in reversed(undo):
@@ -146,8 +127,9 @@ def profile():
 
 def read_trace(prof) -> dict:
   """The trace's device operations (name, start us, duration us, launching
-  span or None), the ranges (name, start us, end us) and the trace's own
-  window range, from ``prof``'s chrome export."""
+  span or None, correlation id, launch us or None), the ranges (name,
+  start us, end us) and the trace's own window range, from ``prof``'s
+  chrome export."""
   with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "trace.json")
     prof.export_chrome_trace(path)
@@ -171,7 +153,7 @@ def read_trace(prof) -> dict:
   del events
   points = [launches.get(c) for _, _, _, c in ops]
   owners = innermost(ranges, points)
-  return {"ops": [(n, ts, dur, owners[i], c)
+  return {"ops": [(n, ts, dur, owners[i], c, points[i])
                   for i, (n, ts, dur, c) in enumerate(ops)],
           "ranges": ranges}
 
@@ -219,19 +201,16 @@ def busy_and_gaps(ops, lo: float, hi: float):
   return busy, gaps
 
 
-LAYERS = ("conv", "groupnorm", "fused")
-
-
 def is_kernel(name: str) -> bool:
   return not name.startswith(("Memcpy", "Memset"))
 
 
-def eager_sequence(trace: dict):
-  """[(kernel name, layer or None)] of a trace of one eager filter step,
-  in launch order: the layer whose span launched it."""
+def eager_sequence(trace: dict, layers):
+  """[(kernel name, layer or None)] of a trace of one eager step, in
+  launch order: the span of ``layers`` that launched it."""
   ks = sorted((o for o in trace["ops"] if is_kernel(o[0])),
               key=lambda o: o[1])
-  return [(o[0], o[3] if o[3] in LAYERS else None) for o in ks]
+  return [(o[0], o[3] if o[3] in layers else None) for o in ks]
 
 
 def align(replay, seq, lookahead: int = 4):
@@ -258,10 +237,12 @@ class TraceSummary:
   """What the readers take from the trace of the traced part of a
   window: device operations inside it, busy time and gaps, the gaps
   named by the span the host was in, spans counted inside it, and the
-  layer of each kernel: the span that launched it where it ran eagerly,
-  its place in the eager step's sequence where a graph replay ran it."""
+  layer of each kernel: the span of ``layers`` that launched it where it
+  ran eagerly, its place in the eager step's sequence where a replay
+  under ``replay_span`` ran it."""
 
-  def __init__(self, trace: dict, window_s: float, eager_seq):
+  def __init__(self, trace: dict, window_s: float, eager_seq,
+               layers=(), replay_span=None):
     window = [r for r in trace["ranges"] if r[0] == "trace"]
     if not window:
       raise RuntimeError("the trace holds no 'perfbench.trace' range")
@@ -276,12 +257,14 @@ class TraceSummary:
     self.gaps = sorted(((n or "harness", d / 1e6)
                         for n, (_, d) in zip(names, gaps)),
                        key=lambda g: -g[1])
-    self.span_counts = collections.Counter(
-        r[0] for r in host if lo <= r[1] and r[2] <= hi)
-    self.layers = [o[3] if o[3] in LAYERS else None for o in self.ops]
+    self.spans = [r for r in host if lo <= r[1] and r[2] <= hi]
+    self.span_counts = collections.Counter(r[0] for r in self.spans)
+    self.layer_names = tuple(layers)
+    self.layers = [o[3] if o[3] in self.layer_names else None
+                   for o in self.ops]
     replays = collections.defaultdict(list)
     for i, o in enumerate(self.ops):
-      if o[3] == "filter.replay" and is_kernel(o[0]):
+      if replay_span is not None and o[3] == replay_span and is_kernel(o[0]):
         replays[o[4]].append(i)
     self.replay_kernels = self.replay_matched = 0
     for idx in replays.values():
@@ -299,6 +282,22 @@ class TraceSummary:
   def launched_under(self, span: str):
     return [o for o in self.ops if o[3] == span]
 
+  def launched_in_each(self, span: str):
+    """[[ops] of each ``span`` range inside the traced part, in time
+    order]: the ops whose launch fell inside that range and inside no
+    range nested in it."""
+    rs = sorted((r[1], r[2]) for r in self.spans if r[0] == span)
+    starts = [s for s, _ in rs]
+    out = [[] for _ in rs]
+    for o in self.launched_under(span):
+      at = o[5]
+      if at is None:
+        continue
+      j = bisect.bisect_right(starts, at) - 1
+      if j >= 0 and at <= rs[j][1]:
+        out[j].append(o)
+    return out
+
   def top_ops(self, n: int = 10):
     by = collections.Counter()
     for o in self.ops:
@@ -310,7 +309,7 @@ class TraceSummary:
     "other" for the rest; and the share of replayed kernels that found
     their place in the eager sequence."""
     total = sum(o[2] for o in self.ops) or 1.0
-    out = {l: self.layer_seconds(l) * 1e6 / total for l in LAYERS}
+    out = {l: self.layer_seconds(l) * 1e6 / total for l in self.layer_names}
     out["other"] = 1.0 - sum(out.values())
     out["replay_kernels_matched"] = (self.replay_matched
                                      / max(self.replay_kernels, 1))

@@ -1,9 +1,9 @@
 """The one generator of the benchmark's traffic. A mix is a data file
 ``perfbench/traffic/<name>.json`` of parameters:
 
-  mode           "stream" (one camera, ``OnlineRelocalizer``), "fleet" (B
-                 cameras in lockstep, ``FleetRelocalizer``) or "offline"
-                 (recorded sequences through ``run_filter_chunked_arrays``)
+  mode           "stream" (one camera), "fleet" (B cameras in lockstep),
+                 both through the family's ``Server``, or "offline"
+                 (recorded sequences through the family's ``sequences``)
   cameras        B, the streams served together
   pool_frames    frames rendered per camera; a camera's track restarts (a
                  reset) at the end of its pool, an offline sequence is the
@@ -17,8 +17,8 @@
                  (``ahead_chunks_traced`` in a run's traced part)
   pipeline_depth the fleet's result lag (0: each tick waited for)
   warmup         frames (ticks) served before the window
-  checks         how many of the window's answers ``check.py`` compares:
-                 first frames (measurements), filter steps, poses
+  checks         how many of the window's answers the family's check
+                 compares: first frames (measurements), steps, poses
 
 Every camera's trajectory is its own, drawn from the run's seed and the
 camera's index; the scene, the sizes and the order of the work are the
