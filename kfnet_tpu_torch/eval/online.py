@@ -1,6 +1,7 @@
 """Online (streaming) relocalization: the serving surface (port of
 ``kfnet_tpu/eval/online.py``): ``OnlineRelocalizer`` for one camera,
-``FleetRelocalizer`` for B cameras in lockstep.
+``FleetRelocalizer`` for B cameras in lockstep; and ``EsacRelocalizer``,
+ESAC's gating and experts for B cameras (``models/esac.py``).
 
     reloc = OnlineRelocalizer(params, config, K)      # on cuda
     for frame in camera:                              # (H, W, 3) uint8
@@ -39,7 +40,7 @@ import torch
 import kfnet_tpu_torch
 from kfnet_tpu_torch.filter import sequence
 from kfnet_tpu_torch.filter.sequence import GraphedStep
-from kfnet_tpu_torch.models import kfnet
+from kfnet_tpu_torch.models import esac, kfnet
 from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.parallel.mesh import Sharded
 from kfnet_tpu_torch.pose import ransac, smoothing
@@ -440,3 +441,229 @@ class FleetRelocalizer(_Relocalizer):
       poses = np.stack([self._smoothers[b].update(poses[b])
                         for b in range(self._B)])
     return poses, info
+
+
+# ---- ESAC -------------------------------------------------------------------
+
+
+# the most (slot, expert) pairs one grouped expert pass runs: a tick that
+# drew more runs them in passes of this many and one of the rest
+PASS_PAIRS = 16
+
+
+def pair_passes(pairs: int):
+  """The sizes of the expert passes that run ``pairs`` pairs."""
+  return [min(PASS_PAIRS, pairs - i) for i in range(0, pairs, PASS_PAIRS)]
+
+
+class _Captured:
+  """``fn(*inputs)`` as one CUDA graph over static copies of ``inputs``.
+  Made by a call that runs ``fn`` eagerly on a side stream (``first``, that
+  call's result) and then captures it, with ``generator`` registered to the
+  graph: the capture draws nothing and each replay draws the next block,
+  as the eager calls would. A call copies new inputs in and replays;
+  ``out`` is the graph's buffers, which the next replay overwrites.
+  Graphs of one ``pool`` (alternatives, never run at once) share their
+  scratch memory. A capture counts one ``esac.captures`` and one
+  ``host.syncs``, a replay one ``esac.replays``."""
+
+  def __init__(self, fn, inputs, generator=None, pool=None):
+    dev = inputs[0].device
+    self.inputs = tuple(t.clone() for t in inputs)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+      self.first = fn(*self.inputs)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    self.graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+      self.graph.register_generator_state(generator)
+    tracing.count("esac.captures")
+    tracing.count("host.syncs")  # torch.cuda.graph synchronises first
+    with torch.cuda.graph(self.graph, pool=pool,
+                          capture_error_mode="thread_local"):
+      self.out = fn(*self.inputs)
+
+  def __call__(self, *inputs):
+    for buf, new in zip(self.inputs, inputs):
+      buf.copy_(new, non_blocking=True)
+    self.graph.replay()
+    tracing.count("esac.replays")
+    return self.out
+
+
+class EsacRelocalizer:
+  """ESAC (``models/esac.py``) serving B cameras in lockstep (B = 1: one
+  camera). Every frame is relocalised on its own: there is no state
+  between ticks.
+
+      reloc = EsacRelocalizer(params, config, K, batch_size=4)  # on cuda
+      poses, info = reloc.process(frames)                # (B, H, W, 3)
+
+  A tick (``tick``) enqueues:
+
+    1. the gating net on the B frames (span ``esac.gate``, with CUDA
+       events): (B, M) probabilities;
+    2. each slot's ``num_hypotheses`` experts, drawn from its
+       probabilities with the surface's generator, and the hypotheses per
+       (slot, expert) (span ``esac.route``, which also holds the tick's
+       one read-back of that (B, M) count, one ``host.syncs``);
+    3. exactly the drawn (slot, expert) pairs, as one grouped pass over
+       weights gathered on the device from the stacked experts (span
+       ``esac.experts``, with CUDA events; ``esac.expert_runs`` counts the
+       pairs, ``esac.experts_drawn`` the distinct experts of the tick),
+       each map written to its (slot, expert) row of a (B·M, h, w, 3)
+       stack; past ``PASS_PAIRS`` pairs, in passes of that many and one
+       of the rest (``pair_passes``);
+    4. the multi-map pose solve (``pose.ransac``, ``map_of``: hypothesis m
+       of slot b reads row b·M + its expert), as ``pose.solve``.
+
+  On ``cuda`` the gating, the draw and the solve are CUDA graphs
+  (``_Captured``; the solve a ``pose.ransac.GraphedSolve``, one key
+  whatever the pairs), and the expert pass one graph for each number of
+  pairs from 1 to ``PASS_PAIRS`` (at most B·M), all captured on the first
+  tick, in one memory pool. ``graph=False``, and the CPU, run everything
+  eagerly, in the same passes. The surface's generator gives, tick after
+  tick, the draw's (B, ``num_hypotheses``) uniforms and the solve's keys,
+  in the same order graphed or eager.
+
+  ``process`` waits for the tick's (B, 18) block [T_wc (16), num_inliers,
+  inlier_ratio] (``online.wait``, one more ``host.syncs``)."""
+
+  def __init__(self, params, config: esac.EsacConfig, K, batch_size: int = 1,
+               ransac_config: ransac.RansacConfig | None = None,
+               stride: int = esac.OUTPUT_STRIDE, seed: int = 0, device=None,
+               graph: bool | None = None):
+    self.device = kfnet_tpu_torch.resolve_device(device)
+    self._graph = sequence._use_graph(self.device, graph)
+    self._config = config
+    self._B, self._M = batch_size, config.num_experts
+    on = lambda t: t.to(self.device)
+    self._gating = L.tree_map(on, params["gating"])
+    self._experts = esac.served_experts(L.tree_map(on, params["experts"]),
+                                        config)
+    self._K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+    self._rcfg = ransac_config or ransac.RansacConfig(solver="p3p")
+    self._stride = stride
+    self._gen = torch.Generator(device=self.device).manual_seed(seed)
+    self._ticks = 0
+    self._maps = self._valid = None    # the (B·M, h, w, ...) stacks
+    self._gate = self._route = None     # their graphs (cuda, graph on)
+    self._passes = {}                   # pairs -> the expert pass's graph
+    self._solver = ransac.GraphedSolve() if self._graph else None
+    self.last = None  # the last tick's (probs, map_of, pairs) on the device
+
+  # the tick's four parts, each a function of tensors (a graph's body)
+
+  def _gate_fn(self, frames):
+    image = esac.preprocess(self._config, frames)
+    return image, esac.gate(self._gating, self._config, image)
+
+  def _route_fn(self, probs):
+    u = torch.rand((self._B, self._rcfg.num_hypotheses), generator=self._gen,
+                   device=self.device)
+    e = esac.draw_experts(probs, u)
+    map_of = e + self._M * torch.arange(self._B, device=self.device)[:, None]
+    return map_of, esac.expert_counts(e, self._M)
+
+  def _experts_fn(self, image, pairs):
+    maps = esac.experts_at(self._experts, self._config, image,
+                           torch.div(pairs, self._M, rounding_mode="floor"),
+                           pairs % self._M)
+    self._maps.index_copy_(0, pairs, maps)
+
+  def _first_tick(self, frames):
+    """Allocate the stacks; on ``cuda`` with graphs, capture the gating,
+    the draw and the expert pass of every size."""
+    h, w = esac.map_shape(tuple(frames.shape[1:]))
+    n = self._B * self._M
+    self._maps = torch.zeros((n, h, w, 3), device=self.device)
+    self._valid = torch.ones((n, h, w), dtype=torch.bool, device=self.device)
+    if not self._graph:
+      return
+    self._gate = _Captured(self._gate_fn, (frames,))
+    self._route = _Captured(self._route_fn, (self._gate.first[1],),
+                            generator=self._gen)
+    pool = torch.cuda.graph_pool_handle()
+    image = self._gate.first[0]
+    for size in range(1, min(PASS_PAIRS, n) + 1):
+      pairs = torch.arange(size, device=self.device)
+      self._passes[size] = _Captured(self._experts_fn, (image, pairs),
+                                     pool=pool)
+
+  @property
+  def maps(self) -> torch.Tensor:
+    """The (B·M, h, w, 3) stack of expert maps: row b·M + e is expert e's
+    map of slot b's frame, where the last tick ran that pair (the graph's
+    buffer on ``cuda``: clone what is kept)."""
+    return self._maps
+
+  def _gated(self, frames, first: bool):
+    """The gating of a tick's frames: (luma (B, 1, H, W), probs (B, M))."""
+    with tracing.span("esac.gate", device=self.device):
+      if self._gate is None:
+        return self._gate_fn(frames)
+      return self._gate.first if first else self._gate(frames)
+
+  def _run_pairs(self, image, pairs: np.ndarray, first: bool):
+    """The grouped expert passes of the (P,) flat pairs b·M + e (sorted);
+    returns the pairs on the device."""
+    with tracing.span("esac.experts", device=self.device):
+      index = _host_frames(torch.from_numpy(pairs.astype(np.int64)),
+                           self.device).to(self.device, non_blocking=True)
+      at = 0
+      for size in pair_passes(len(pairs)):
+        part = index[at:at + size]
+        at += size
+        if self._passes and not first:
+          self._passes[size](image, part)
+        else:  # eager, or a capture's warm-up ran other pairs
+          self._experts_fn(image, part)
+      return index
+
+  def tick(self, images) -> torch.Tensor:
+    """Enqueue one (B, H, W, 3) tick (uint8 0..255, or float in [0, 1]);
+    returns the packed (B, 18) float32 block on the device. Waits once on
+    the device, for the drawn pairs (and on the first tick for each
+    capture)."""
+    with tracing.span("online.tick", id=self._ticks):
+      frames = _host_frames(images, self.device).to(self.device,
+                                                    non_blocking=True)
+      if frames.shape[0] != self._B:
+        raise ValueError(f"expected batch {self._B}, got {frames.shape[0]}")
+      first = self._maps is None
+      if first:
+        self._first_tick(frames)
+      image, probs = self._gated(frames, first)
+      with tracing.span("esac.route"):
+        if self._route is None:
+          map_of, counts = self._route_fn(probs)
+        else:
+          map_of, counts = self._route.first if first else self._route(probs)
+        tracing.count("host.syncs")
+        drawn = counts.cpu().numpy() > 0  # the tick's read-back
+      pairs = np.flatnonzero(drawn)
+      tracing.count("esac.expert_runs", len(pairs))
+      tracing.count("esac.experts_drawn", int(drawn.any(0).sum()))
+      index = self._run_pairs(image, pairs, first)
+      self.last = (probs, map_of, index)
+      self._ticks += 1
+      out = ransac.solve_pnp_from_maps(
+          self._maps, None, self._valid, self._K, self._gen,
+          stride=self._stride, config=self._rcfg, graphed=self._solver,
+          map_of=map_of)
+      return torch.cat(_packed_parts(out), dim=-1)
+
+  def process(self, images):
+    """Feed one (B, H, W, 3) tick; returns (poses (B, 4, 4), info): tick,
+    num_inliers and inlier_ratio (B,), and pairs, the (slot, expert) pairs
+    the tick ran."""
+    tick = self._ticks
+    packed = self.tick(images)
+    with tracing.span("online.wait", id=tick):
+      tracing.count("host.syncs")
+      packed = packed.cpu().numpy()  # the tick's answer
+    info = {"tick": tick, "num_inliers": packed[:, 16].copy(),
+            "inlier_ratio": packed[:, 17].copy(),
+            "pairs": len(self.last[2])}
+    return packed[:, :16].reshape(self._B, 4, 4), info

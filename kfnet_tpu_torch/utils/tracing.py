@@ -33,7 +33,10 @@ records no more and counts each one lost in ``tracing.dropped``.
 Counters (``count(name, n)``): ``host.syncs``, the points where the
 program waits for the device; ``filter.captures``, the filter step's
 CUDA graphs built; ``pose.captures`` and ``pose.replays``, the served pose
-solve's CUDA graphs built and replayed; ``tracing.dropped``.
+solve's CUDA graphs built and replayed; ESAC's ``esac.expert_runs`` (the
+(slot, expert) pairs a tick ran), ``esac.experts_drawn`` (the distinct
+experts of a tick), ``esac.captures`` and ``esac.replays`` (its gating,
+draw and expert-pass graphs); ``tracing.dropped``.
 """
 
 from __future__ import annotations

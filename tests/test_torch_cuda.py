@@ -1291,3 +1291,57 @@ def test_graft_dryrun_on_a_repeated_card(cuda):
   graft_entry.dryrun_multichip(2)
   torch.cuda.synchronize()
   assert tff.fused_filter_step.launches == 0  # the composition
+
+
+# ESAC's serving surface (models/esac.py, eval/online.EsacRelocalizer) at a
+# small width on the card: the graphed gating, draw, expert passes and
+# multi-map solve give the eager surface's bits, tick after tick, at B = 1
+# and 4; the generator's state is the same after the same ticks; the first
+# tick captures the gating, the draw, the expert pass of every size and the
+# solve, and the later ticks replay them (one replay an expert pass). ESAC
+# keeps no state between ticks: the frames jump to another sequence at
+# tick 4 (a track restart) with nothing to reset.
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_graphed_esac_surface_equals_the_eager_one(cuda, B):
+  from kfnet_tpu_torch.eval.online import (EsacRelocalizer, PASS_PAIRS,
+                                           pair_passes)
+  from kfnet_tpu_torch.models import esac
+  from kfnet_tpu_torch.pose import ransac
+  from kfnet_tpu_torch.utils import tracing
+  cfg = esac.EsacConfig(num_experts=5, stem_channels=(8, 16, 32, 64),
+                        res_channels=128, head_channels=128,
+                        gating_channels=(2, 4, 8, 16))
+  params = esac.init(0, cfg, device=cuda)
+  rcfg = ransac.RansacConfig(solver="p3p", num_hypotheses=64)
+  n = 9
+  rng = np.random.default_rng(11)
+  ticks = rng.integers(0, 256, (n, B, 48, 64, 3), dtype=np.uint8)
+  ticks[4:] = rng.integers(0, 256, (n - 4, B, 48, 64, 3), dtype=np.uint8)
+
+  def serve(graph):
+    rl = EsacRelocalizer(params, cfg, K_SMALL, batch_size=B,
+                         ransac_config=rcfg, seed=5, device=cuda,
+                         graph=graph)
+    out, passes = [], 0
+    for t in range(n):
+      out.append(rl.tick(ticks[t]).cpu())
+      passes += len(pair_passes(rl.last[2].numel())) if t else 0
+    return rl, out, passes
+
+  tracing.enable()
+  try:
+    graphed, got, passes = serve(None)
+  finally:
+    tracing.disable()
+  counters = tracing.snapshot()["counters"]
+  eager, want, _ = serve(False)
+  sizes = min(PASS_PAIRS, B * cfg.num_experts)
+  assert counters["esac.captures"] == 2 + sizes
+  assert counters["esac.replays"] == 2 * (n - 1) + passes
+  assert counters["pose.captures"] == 1
+  assert counters["pose.replays"] == n - 1
+  for t, (g, w) in enumerate(zip(got, want)):
+    assert torch.isfinite(g).all()
+    assert torch.equal(g, w), (t, (g - w).abs().max().item())
+  assert torch.equal(graphed._gen.get_state(), eager._gen.get_state())
