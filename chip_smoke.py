@@ -6,8 +6,10 @@
 Phases, one line each, with their seconds:
   1. environment: torch and CUDA versions, the GPU, nvidia-smi's name and
      power limit, the float32 settings in force (TF32 off, so the plain
-     versions' float32 products are full float32);
-  2. build: the two CUDA libraries, one nvcc each, started together, from
+     versions' float32 products are full float32), the cuBLAS and cuSOLVER
+     loaded, beside RANSAC_PROBED (the versions whose rounding the pose
+     kernels copy) and whether they are the same;
+  2. build: the three CUDA libraries, one nvcc each, started together, from
      the sources in the checkout, then the checkpoint reader's zstd
      decoder (utils/csrc/zstd_decode.cpp, host C++, libc only);
   3. the fused warp + Kalman kernel against its plain PyTorch version on
@@ -46,7 +48,9 @@ Phases, one line each, with their seconds:
      eight 640x480 uint8 frames through OnlineRelocalizer, whose filter
      step is one CUDA graph replayed a frame. The fused kernel must launch
      once per frame after the first and the conv kernels never (every
-     count set to 0 just before and read after, under replay), the packed
+     count set to 0 just before and read after, under replay), each pose
+     kernel once a solve and each solve one pose.kernel_solves (eager on
+     the first frame, replayed after), the packed
      outputs must be finite, the same frames through use_fused_kernel=False
      must give the same x and P (rtol 1e-3, atol 1e-3: the two paths share
      every bf16 op, so any difference is the kernel's), and through the
@@ -59,7 +63,8 @@ Phases, one line each, with their seconds:
      kernel's launches equal the count kfnet.kernel_shapes gives for the
      config (12 chain calls a frame; conv3x3_same once on the first frame
      and 6 times on each later one; the fused update once a frame after the
-     first), outputs finite, no host sync inside a frame, and the bf16
+     first; each pose kernel once a solve, as in phase 5), outputs finite,
+     no host sync inside a frame, and the bf16
      weight layout copied once per weight tensor, not per frame (no copy
      after the second frame); every kernel
      call of one frame's (z, V) and one pair's (flow, W) within phase 4's
@@ -110,11 +115,24 @@ Phases, one line each, with their seconds:
      (configs.synthetic_ransac(True)): within 1 cm and 0.1°; the served tick
      with the P3P solver enqueued with no host sync; the solve's time beside
      the DLT's at the same budget;
+  7d'. ransac: the pose solve's three kernels (kernels/ransac.py) at the
+     served shapes, the DLT over 2048 points at T = 1 and 4 and P3P over a
+     stack of 4 x 19 maps of 4800 cells (map_of), 256 draws a frame, on
+     known-pose maps: each stage's kernel against its plain version on the
+     plain version's inputs (candidates and scores bit for bit, a NaN for a
+     NaN; the refined pose and inliers within RANSAC_TOL), the three
+     launches against the plain solve on the same draws; each kernel's
+     device time alone (CUDA graph of 20 launches) and back to back,
+     beside its plain stage's, eager and as a CUDA graph, and the whole
+     solve after the draws the same way; bound: bytes at 3.35 TB/s
+     (their true bound is serial depth, csrc/ransac.cu);
   7e. fleet: FleetRelocalizer, FLEET_B = 4 streams of 640x480 uint8 frames
      over FLEET_T ticks at full width, default and conv-kernel configs,
      slot 2 reset at tick FLEET_RESET: launches (one fused launch a tick;
      kfnet.kernel_shapes' conv calls times B), one capture and none after
-     the reset ticks, no host sync in a tick with or without a reset mask,
+     the reset ticks, each pose kernel once a tick's solve and each solve
+     one pose.kernel_solves, no host sync in a tick with or without a
+     reset mask,
      the reset slot's consistent_frac 0, pipelined (depth 1) ticks equal to
      the sync ticks, each slot against the stream alone through an
      OnlineRelocalizer (bf16 default config recorded, its float32 form and
@@ -508,6 +526,24 @@ STUDY_CONV_T, STUDY_PROFILE_T, STUDY_TURNS = 8, 8, 5
 STUDY_FIX_TRAIN, STUDY_FIX_TEST = 4, 4
 FILTER_FPS_RUNS = 1 + 3 * 3            # eval/benchmark.filter_fps's calls
 PT_FLEET_TICKS = 1 + (1 + 5 * 3) + (2 + 5 * 16)
+# phase "ransac": the served shapes (name, solver, frames), the experts a
+# frame of the P3P stack, and the tolerances of the refined pose against the
+# plain version's (tests/test_torch_ransac_cuda.py says why; candidates and
+# scores are held bit for bit)
+RANSAC_SHAPES = (("stream1", "dlt", 1), ("fleet4", "dlt", 4),
+                 ("esac4", "p3p", 4))
+RANSAC_EXPERTS = 19
+RANSAC_TOL = {"T_wc": 1e-3, "inliers": 2.0}
+# the libraries whose rounding the pose kernels copy, as the probes behind
+# csrc/ransac.cu ran (library_versions()'s fields): under others the
+# candidates may round apart from the plain version's with no kernel change
+RANSAC_PROBED = {"torch": "2.11.0+cu128", "cuda": "12.8",
+                 "cublas": "12.9.2", "cusolver": "11.7.3"}
+# the pose kernels (kernels/ransac.py's wrappers) and the tracer's counters
+# of the served solve
+POSE_KERNELS = ("hypothesize", "score", "pick_and_refine")
+POSE_COUNTERS = ("pose.kernel_solves", "pose.captures", "pose.replays")
+HBM_BYTES_PER_MS = 3.35e9   # an H100 SXM's 3.35 TB/s
 # phase "graft_entry": the timed calls of entry()'s step, eager and
 # graphed; graphed against eager (rtol, atol); the dry run's entries
 GRAFT_CALLS, GRAPH_TOL, GRAFT_DRYRUN_ENTRIES = 20, 1e-3, 4
@@ -529,6 +565,40 @@ def nvidia_smi():
     return f"nvidia-smi failed ({res.returncode}): {res.stderr.strip()}"
   except (OSError, subprocess.TimeoutExpired) as e:
     return f"nvidia-smi failed: {e}"
+
+
+def probed_libraries(libraries):
+  """Whether ``libraries`` (library_versions()) are the ones the pose
+  kernels' rounding was probed under (RANSAC_PROBED)."""
+  return all(libraries.get(k) == v for k, v in RANSAC_PROBED.items())
+
+
+def library_versions():
+  """torch, its CUDA and cuDNN, and the cuBLAS and cuSOLVER this process
+  loaded (each one's GetProperty: major.minor.patch, None where not
+  loaded): the libraries whose rounding the pose kernels copy
+  (kernels/csrc/ransac.cu, RANSAC_PROBED)."""
+  import ctypes
+  import torch
+  a = torch.ones(8, 8, device="cuda")  # a product and a Cholesky load both
+  torch.linalg.cholesky(a @ a.T + 8 * torch.eye(8, device="cuda"))
+  torch.cuda.synchronize()
+  out = {"torch": torch.__version__, "cuda": torch.version.cuda,
+         "cudnn": torch.backends.cudnn.version()}
+  with open("/proc/self/maps") as f:
+    loaded = sorted({line.split()[-1] for line in f if ".so" in line})
+  for lib in ("cublas", "cusolver"):
+    path = next((p for p in loaded
+                 if os.path.basename(p).startswith(f"lib{lib}.so")), None)
+    if path is None:
+      out[lib] = None
+      continue
+    get = getattr(ctypes.CDLL(path), f"{lib}GetProperty")
+    parts = [ctypes.c_int(-1) for _ in range(3)]  # MAJOR, MINOR, PATCH
+    for i, p in enumerate(parts):
+      get(i, ctypes.byref(p))
+    out[lib] = ".".join(str(p.value) for p in parts)
+  return out
 
 
 def filter_inputs(rng, h, w, r, oob):
@@ -940,6 +1010,33 @@ def counted(wrappers, fn):
   return out, {name: w.launches for name, w in wrappers.items()}
 
 
+def counted_solves(fn):
+  """``fn()``'s result and the pose solve's counts it made: each pose
+  kernel's launches (counted under replay, set to 0 just before) and the
+  tracer's POSE_COUNTERS (the tracer on around ``fn``)."""
+  import torch
+  from kfnet_tpu_torch.kernels import ransac as kr
+  from kfnet_tpu_torch.utils import tracing
+  for stage in POSE_KERNELS:
+    getattr(kr, stage).launches = 0
+  tracing.enable()
+  try:
+    out = fn()
+    torch.cuda.synchronize()
+  finally:
+    tracing.disable()
+  counters = tracing.snapshot()["counters"]
+  return out, {**{s: getattr(kr, s).launches for s in POSE_KERNELS},
+               **{k: counters.get(k, 0) for k in POSE_COUNTERS}}
+
+
+def one_launch_a_solve(counts, solves):
+  """Whether ``counts`` (counted_solves') show ``solves`` solves, each
+  one launch of every pose kernel and one ``pose.kernel_solves``."""
+  return all(counts[k] == solves
+             for k in POSE_KERNELS + ("pose.kernel_solves",))
+
+
 def sequence_forms(sequence, params, c, frames, resume_at, chunk, wrappers,
                    dev):
   """The graphed run, the chunked stream (host uint8 frames) and the run
@@ -1071,6 +1168,144 @@ def known_pose_maps(rng, K, h=60, w=80, stride=8, outliers=0.3):
   return X, rng.uniform(0.5, 2.0, (h, w, 1)), T_wc
 
 
+def ransac_case(dev, solver, T, seed):
+  """One served shape's solve after its draws on known-pose maps: ((uv, X,
+  w, K, idx, map_of), config). The DLT: T frames' 60x80 maps (30%
+  outliers), their 2048 most confident cells; P3P: T x RANSAC_EXPERTS maps
+  (60% outliers) of 4800 cells on one pixel grid, frame t's 256 draws over
+  its own experts, as EsacRelocalizer's stack."""
+  import numpy as np
+  import torch
+  from kfnet_tpu_torch.core import geometry
+  from kfnet_tpu_torch.pose import ransac
+  rng = np.random.default_rng(seed)
+  K = np.array([[585.0, 0.0, 319.5], [0.0, 585.0, 239.5], [0.0, 0.0, 1.0]])
+  f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+  grid = geometry.cell_center_grid(60, 80, 8, device=dev).reshape(-1, 2)
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  if solver == "dlt":
+    cfg = ransac.RansacConfig()
+    maps = [known_pose_maps(rng, K) for _ in range(T)]
+    var = f32(np.stack([m[1] for m in maps])).reshape(T, -1)
+    uv, X, w = ransac.select_confident(
+        grid, f32(np.stack([m[0] for m in maps])).reshape(T, -1, 3), var,
+        torch.ones(var.shape, dtype=torch.bool, device=dev), cfg.top_k)
+    idx = ransac.sample_hypotheses(w, cfg.num_hypotheses, cfg.draw_size, gen)
+    return (uv, X, w, f32(K), idx, None), cfg
+  cfg = ransac.RansacConfig(solver="p3p")
+  E = T * RANSAC_EXPERTS
+  X = f32(np.stack([known_pose_maps(rng, K, outliers=0.6)[0]
+                    for _ in range(E)])).reshape(E, -1, 3)
+  w = torch.ones(X.shape[:2], device=dev)
+  experts = torch.as_tensor(
+      rng.integers(0, RANSAC_EXPERTS, (T, cfg.num_hypotheses)), device=dev)
+  map_of = experts + RANSAC_EXPERTS * torch.arange(T, device=dev)[:, None]
+  idx = ransac.sample_hypotheses(w, cfg.num_hypotheses, cfg.draw_size, gen,
+                                 map_of)
+  return (grid, X, w, f32(K), idx, map_of), cfg
+
+
+def ransac_phase(dev):
+  """Phase "ransac" (module docstring, 7d'): {shape: fields} of each served
+  shape; raises where a kernel's candidates or scores are not its plain
+  version's bits, or its refined pose misses the plain one by more than
+  RANSAC_TOL."""
+  import torch
+  from kfnet_tpu_torch.kernels import ransac as kr
+  from kfnet_tpu_torch.tools import conv_tiles
+  wrappers = (kr.hypothesize, kr.score, kr.pick_and_refine)
+  out = {}
+  for i, (name, solver, T) in enumerate(RANSAC_SHAPES):
+    (uv, X, w, K, idx, map_of), cfg = ransac_case(dev, solver, T, 20 + i)
+    c = kr.CANDIDATES[solver]
+    thr, iters, fin = (cfg.inlier_threshold_px, cfg.refine_iters,
+                       cfg.refine_threshold_px)
+    uvh, Xh, wh = kr.per_hypothesis(uv, X, w, map_of)
+    Rs, ts = kr.hypothesize_reference(uvh, Xh, K, idx, solver)
+    inl = kr.score_reference(uvh, Xh, wh, K, Rs, ts, thr)
+    want = kr.refine_reference(uv, X, w, K, Rs, ts, inl, iters, fin, map_of)
+    cands, scores = kr.candidates(Rs, ts), torch.sum(inl, dim=-1)
+    stages = {
+        "hypothesize": (
+            lambda: kr.hypothesize(uv, X, K, idx, solver, map_of),
+            lambda: kr.hypothesize_reference(uvh, Xh, K, idx, solver)),
+        "score": (
+            lambda: kr.score(uv, X, w, K, cands, c, thr, map_of),
+            lambda: kr.score_reference(uvh, Xh, wh, K, Rs, ts, thr)),
+        "pick_and_refine": (
+            lambda: kr.pick_and_refine(uv, X, w, K, cands, scores, c, thr,
+                                       iters, fin, map_of),
+            lambda: kr.refine_reference(uv, X, w, K, Rs, ts, inl, iters, fin,
+                                        map_of))}
+
+    def kernels():
+      cc = kr.hypothesize(uv, X, K, idx, solver, map_of)
+      ss = kr.score(uv, X, w, K, cc, c, thr, map_of)
+      return kr.pick_and_refine(uv, X, w, K, cc, ss, c, thr, iters, fin,
+                                map_of)
+
+    def plain():
+      R_, t_ = kr.hypothesize_reference(uvh, Xh, K, idx, solver)
+      i_ = kr.score_reference(uvh, Xh, wh, K, R_, t_, thr)
+      return kr.refine_reference(uv, X, w, K, R_, t_, i_, iters, fin, map_of)
+
+    got_c = stages["hypothesize"][0]()
+    got_s = stages["score"][0]()
+    got = stages["pick_and_refine"][0]()
+    whole = kernels()
+    gap = lambda a, b: (a - b).abs().max().item()
+    same = (got_c == cands) | (torch.isnan(got_c) & torch.isnan(cands))
+    fields = {
+        "frames": T, "solver": solver, "draws": int(idx.shape[1]),
+        "points": int(X.shape[1]), "pools": int(X.shape[0]),
+        "finite_share": torch.isfinite(got_c).all(-1).float().mean().item(),
+        "candidates_bit_equal": same.all(-1).float().mean().item(),
+        "scores_equal": bool(torch.equal(got_s, scores)),
+        "T_wc_gap": gap(got["T_wc"], want["T_wc"]),
+        "inliers_gap": gap(got["num_inliers"], want["num_inliers"]),
+        "whole_T_wc_gap": gap(whole["T_wc"], want["T_wc"]),
+        "whole_inliers_gap": gap(whole["num_inliers"], want["num_inliers"]),
+        "inliers": want["num_inliers"].tolist()}
+    tol = RANSAC_TOL
+    if not (fields["candidates_bit_equal"] == 1.0 and fields["scores_equal"]
+            and max(fields["T_wc_gap"], fields["whole_T_wc_gap"])
+            < tol["T_wc"]
+            and max(fields["inliers_gap"], fields["whole_inliers_gap"])
+            <= tol["inliers"]):
+      libraries = library_versions()
+      raise AssertionError(
+          f"ransac kernels off their plain versions at {name}: {fields}; "
+          f"libraries {libraries}, probed under {RANSAC_PROBED}"
+          + ("" if probed_libraries(libraries) else
+             ": the libraries changed, so re-probe their rounding "
+             "(csrc/ransac.cu) before suspecting the kernel"))
+    nbytes = {  # each input byte read once, each output byte written once
+        "hypothesize": idx.numel() * (8 + 5 * 4) + cands.numel() * 4,
+        "score": (X.numel() + w.numel() + uv.numel() + cands.numel()
+                  + scores.numel()) * 4,
+        "pick_and_refine": (T * X.shape[1] * 6 + T * 12
+                            + scores.numel() + T * 19) * 4}
+    times = {}
+    for stage, (kernel, reference) in stages.items():
+      times[stage] = {
+          "alone_ms": conv_tiles.graph_ms(kernel, 20),
+          "ms": cuda_ms(kernel, 50),
+          "plain_ms": cuda_ms(reference, 3),
+          "plain_graph_ms": conv_tiles.graph_ms(reference, 1),
+          "bound_ms": nbytes[stage] / HBM_BYTES_PER_MS, "bound_by": "bytes"}
+    before = [f.launches for f in wrappers]
+    times["solve"] = {"alone_ms": conv_tiles.graph_ms(kernels, 20),
+                      "ms": cuda_ms(kernels, 50),
+                      "plain_ms": cuda_ms(plain, 3),
+                      "plain_graph_ms": conv_tiles.graph_ms(plain, 1),
+                      "bound_ms": sum(nbytes.values()) / HBM_BYTES_PER_MS,
+                      "bound_by": "bytes"}
+    fields["launches_in_solve_timing"] = [
+        f.launches - b for f, b in zip(wrappers, before)]
+    out[name] = {**fields, "times": times}
+  return out
+
+
 def fleet_run(FleetRelocalizer, params, c, K, ticks, resets, dev, **kw):
   """A fleet over ``ticks`` ((T, B, H, W, 3) uint8) with ``resets`` (a mask
   or None per tick): (the fleet, its (poses, info) per tick in tick order,
@@ -1147,8 +1382,9 @@ def fleet_phase(dev, params, configs_, cfg32, K, fticks, resets, first, later,
   for name, c in configs_.items():
     captures.clear()
     with mock.patch.object(online, "GraphedStep", CountedStep):
-      (fl, outs, states), n = counted(wrappers, lambda: fleet_run(
-          FleetRelocalizer, params, c, K, fticks, resets, dev))
+      ((fl, outs, states), solves), n = counted(
+          wrappers, lambda: counted_solves(lambda: fleet_run(
+              FleetRelocalizer, params, c, K, fticks, resets, dev)))
       n_captures = len(captures)
       syncs = (host_syncs(fl, fticks[1], reset=resets[FLEET_RESET])
                + host_syncs(fl, fticks[2]))
@@ -1167,6 +1403,7 @@ def fleet_phase(dev, params, configs_, cfg32, K, fticks, resets, first, later,
         for (a, ps), (b, pp) in zip(outs, piped))
     row = {
         "launches": n, "launches_expected": expected,
+        "pose_solves": solves, "pose_solves_expected": FLEET_T,
         "captures": n_captures, "captures_after_reset_ticks":
             n_captures_after - n_captures,
         "host_syncs_in_one_tick_with_and_without_reset": syncs,
@@ -3286,6 +3523,7 @@ def main():
   from kfnet_tpu_torch.kernels import _build
   from kfnet_tpu_torch.kernels import conv3x3 as c3
   from kfnet_tpu_torch.kernels import fused_filter as ff
+  from kfnet_tpu_torch.kernels import ransac as kr
   from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
   from kfnet_tpu_torch.nn import layers as L
   from kfnet_tpu_torch.pose import ransac
@@ -3299,18 +3537,24 @@ def main():
   smi = nvidia_smi()
   precision = kfnet_tpu_torch.set_fp32_precision()
   print(smi, flush=True)
+  libraries = library_versions()
   say("env", t0, torch=torch.__version__, cuda=torch.version.cuda, gpu=gpu,
-      count=torch.cuda.device_count(), nvidia_smi=smi, fp32=precision)
+      count=torch.cuda.device_count(), nvidia_smi=smi, fp32=precision,
+      libraries=libraries, ransac_probed_under=RANSAC_PROBED,
+      libraries_as_probed=probed_libraries(libraries))
 
   # 2. build
   t0 = time.time()
-  _build.build_libraries([(ff.LIBRARY, ff.SOURCES), (c3.LIBRARY, c3.SOURCES)])
+  _build.build_libraries([(ff.LIBRARY, ff.SOURCES), (c3.LIBRARY, c3.SOURCES),
+                          (kr.LIBRARY, kr.SOURCES)])
   ff.build()
   c3.build()
+  kr.build()
   t1 = time.time()
   ocdbt.load_library()  # the checkpoint reader's zstd decoder (host C++)
   say("build", t0, sources=["kfnet_tpu_torch/kernels/csrc/fused_filter.cu",
                             "kfnet_tpu_torch/kernels/csrc/conv3x3.cu",
+                            "kfnet_tpu_torch/kernels/csrc/ransac.cu",
                             "kfnet_tpu_torch/utils/csrc/zstd_decode.cpp"],
       host_library_seconds=round(time.time() - t1, 2))
 
@@ -3395,8 +3639,9 @@ def main():
   wrappers = {"fused_warp_kalman": ff.fused_filter_step,
               "conv3x3_same": c3.conv3x3_same,
               "conv3x3_gn_chain": c3.conv3x3_gn_chain}
-  outs, slice_launches = counted(
-      wrappers, lambda: [reloc.process(f) for f in frames])
+  (outs, slice_solves), slice_launches = counted(
+      wrappers, lambda: counted_solves(
+          lambda: [reloc.process(f) for f in frames]))
   launches = slice_launches["fused_warp_kalman"]
   x_f, P_f = (a.clone() for a in reloc.state[:2])
   eager = OnlineRelocalizer(params, cfg, K, device=dev, seed=0, graph=False)
@@ -3413,6 +3658,7 @@ def main():
   checks = {
       "launches": slice_launches,
       "launches_expected": slice_expected,
+      "pose_solves": slice_solves, "pose_solves_expected": len(frames),
       "state_shapes": [list(x_f.shape), list(P_f.shape)],
       "packed_finite": bool(np.isfinite(poses).all() and all(
           np.isfinite([i["consistent_frac"], i["num_inliers"],
@@ -3438,6 +3684,9 @@ def main():
   if slice_launches != slice_expected:
     raise AssertionError(f"kernel launches {slice_launches} for "
                          f"{len(frames)} frames, expected {slice_expected}")
+  if not one_launch_a_solve(slice_solves, len(frames)):
+    raise AssertionError(f"pose kernels {slice_solves} for {len(frames)} "
+                         f"solves: expected one launch of each a solve")
   if not checks["packed_finite"]:
     raise AssertionError("non-finite packed output")
   if not torch.allclose(x_f, x_p, rtol=TOL_PATH, atol=TOL_PATH) or \
@@ -3457,10 +3706,13 @@ def main():
   c3.conv3x3_gn_chain.launches = 0
   L.layout_copies = 0
   c3.prepared_weights.copies = 0
-  outs_c = [reloc_c.process(f) for f in frames[:2]]
-  weight_copies_first_pair = c3.prepared_weights.copies
-  outs_c += [reloc_c.process(f) for f in frames[2:]]
-  torch.cuda.synchronize()
+
+  def served_c():  # (outputs, weight copies over the first two frames)
+    pair = [reloc_c.process(f) for f in frames[:2]]
+    copies = c3.prepared_weights.copies
+    return pair + [reloc_c.process(f) for f in frames[2:]], copies
+
+  (outs_c, weight_copies_first_pair), conv_solves = counted_solves(served_c)
   weight_copies_later = c3.prepared_weights.copies - weight_copies_first_pair
   # "fused_warp_kalman" is the kernels line's name for the fused update
   conv_launches = {"fused_warp_kalman": ff.fused_filter_step.launches,
@@ -3504,6 +3756,7 @@ def main():
   poses_c = np.stack([p for p, _ in outs_c])
   conv_checks = {
       "launches": conv_launches, "launches_expected": expected,
+      "pose_solves": conv_solves, "pose_solves_expected": len(frames),
       "layout_copies": copies,
       "weight_layout_copies": {"first_two_frames": weight_copies_first_pair,
                                "later_frames": weight_copies_later},
@@ -3522,6 +3775,10 @@ def main():
   if conv_launches != expected:
     raise AssertionError(f"kernel launches {conv_launches}, expected "
                          f"{expected}")
+  if not one_launch_a_solve(conv_solves, len(frames)):
+    raise AssertionError(f"pose kernels {conv_solves} for {len(frames)} "
+                         f"solves (conv kernels): expected one launch of "
+                         f"each a solve")
   if not conv_graph_vs_eager["held"]:
     raise AssertionError(f"the graphed filter step disagrees with the eager "
                          f"one (conv kernels): {conv_graph_vs_eager}")
@@ -3741,6 +3998,11 @@ def main():
   if p3p_checks["host_syncs_in_one_tick"] or not p3p_checks["packed_finite"]:
     raise AssertionError(f"the P3P tick: {p3p_checks}")
 
+  # 7d'. the pose solve's kernels at the served shapes
+  t0 = time.time()
+  rs = ransac_phase(dev)
+  say("ransac", t0, gpu=gpu, nvidia_smi=smi, tol=RANSAC_TOL, **rs)
+
   # 7e. the fleet: B streams at full width, both configurations
   t0 = time.time()
   fticks = np.random.default_rng(7).integers(
@@ -3758,6 +4020,10 @@ def main():
     if row["launches"] != row["launches_expected"]:
       raise AssertionError(f"fleet {name} launches {row['launches']}, "
                            f"expected {row['launches_expected']}")
+    if not one_launch_a_solve(row["pose_solves"], FLEET_T):
+      raise AssertionError(f"fleet {name} pose kernels {row['pose_solves']} "
+                           f"for {FLEET_T} solves: expected one launch of "
+                           f"each a solve")
     if row["captures"] != 1 or row["captures_after_reset_ticks"]:
       raise AssertionError(f"fleet {name}: captured {row['captures']} "
                            f"times, then {row['captures_after_reset_ticks']}")
@@ -4132,6 +4398,11 @@ def main():
                  for k, v in fleet_checks.items()},
               **mesh_launches, **study_launches, **ge_launches}
   phase_launches = lambda k: {p: v[k] for p, v in by_phase.items()}
+  solves_by_phase = {"slice_full_width": slice_solves,
+                     "slice_conv_kernels": conv_solves,
+                     **{f"fleet_{k}": v["pose_solves"]
+                        for k, v in fleet_checks.items()}}
+  solve_launches = lambda k: {p: v[k] for p, v in solves_by_phase.items()}
   print(json.dumps({"kernels": [{
       # the fused update: the main path's heads-in entry, one 60x80 map
       # (ms and plain_ms back to back, alone_ms its wrapper in a graph);
@@ -4179,7 +4450,21 @@ def main():
       "bound_by": chain_frame["bound_by"],
       "library_ms": None,
       "alone_ms": alone["conv3x3_gn_chain"]["alone_ms"],
-      "library_alone_ms": None}]}), flush=True)
+      "library_alone_ms": None}] + [{
+      # the pose solve's kernels: one row each, times per served shape
+      # (phase "ransac"); no TPU kernel replaced, no library call computes
+      # the same function
+      "name": stage, "route": "cuda",
+      "source": "kfnet_tpu_torch/kernels/csrc/ransac.cu", "replaces": None,
+      # served: one relocaliser's 8 solves, eager then replayed (phase 5)
+      "launches": slice_solves[stage],
+      "launches_by_phase": solve_launches(stage),
+      **{key: {shape: v["times"][stage][key] for shape, v in rs.items()}
+         for key in ("alone_ms", "ms", "plain_ms", "plain_graph_ms",
+                     "bound_ms")},
+      "bound_by": "bytes", "library_ms": None}
+      for stage in ("hypothesize", "score", "pick_and_refine")]}),
+        flush=True)
   torch.cuda.synchronize()
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": gpu, "count": torch.cuda.device_count()}}),

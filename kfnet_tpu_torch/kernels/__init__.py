@@ -1,2 +1,3 @@
-"""Kernels: the fused filter update and the conv kernels (CUDA, with their
-plain PyTorch versions), the cost volume, and the kernels' launch counts."""
+"""Kernels: the fused filter update, the conv kernels and the pose solve's
+kernels (CUDA, with their plain PyTorch versions), the cost volume, and the
+kernels' launch counts."""

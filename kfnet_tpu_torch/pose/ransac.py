@@ -17,8 +17,15 @@ top-k: every valid cell of the map takes part. With ``map_of[t] = t`` and
 the variances the solve is the one-map solve, bit for bit. Nothing here reads
 a value back to the host. A solve is the span ``pose.solve``
 (``utils/tracing.py``) over its four stages: ``pose.draw`` (top-k and
-draws), ``pose.hypothesize``, ``pose.score`` (errors, inliers, the pick)
-and ``pose.refine`` (LM, final errors and outputs).
+draws), ``pose.hypothesize``, ``pose.score`` (errors, inliers) and
+``pose.refine`` (the pick, LM, final errors and outputs).
+
+After the draws, the device decides the path: on the CPU the plain
+PyTorch composition (``kernels/ransac.py``, the ``*_reference`` stages), on
+CUDA the hand-written kernels, one launch a stage (``kernels/ransac.py``:
+``hypothesize``, ``score``, ``pick_and_refine``), each solve counting one
+``pose.kernel_solves``. The kernels draw nothing: the top-k and the keys
+are the same on both.
 
 A serving surface replays its solve as one CUDA graph (``GraphedSolve``,
 passed to ``solve_pnp_from_maps`` as ``graphed``); without one the solve
@@ -32,7 +39,8 @@ import dataclasses
 import torch
 
 from kfnet_tpu_torch.core import geometry as geo
-from kfnet_tpu_torch.pose import p3p, pnp
+from kfnet_tpu_torch.kernels import launches
+from kfnet_tpu_torch.kernels import ransac as kransac
 from kfnet_tpu_torch.utils import tracing
 
 SOLVERS = ("dlt", "p3p")
@@ -59,13 +67,6 @@ class RansacConfig:
     return 3 if self.solver == "p3p" else self.sample_size
 
 
-def _take(a, idx):
-  """Rows of ``a`` ([T,] N, C) at ``idx`` ([T,] *S): ([T,] *S, C)."""
-  sel = idx.reshape(a.shape[:-2] + (-1, 1))
-  return torch.take_along_dim(a, sel, dim=-2).reshape(idx.shape
-                                                      + a.shape[-1:])
-
-
 def select_confident(pixels, coords, variance, valid, k):
   """Top-k lowest-variance valid correspondences of each frame.
 
@@ -79,7 +80,7 @@ def select_confident(pixels, coords, variance, valid, k):
                       torch.full_like(variance, float("-inf")))
   idx = torch.topk(score, k).indices
   pixels = pixels.expand(idx.shape[:-1] + pixels.shape[-2:])
-  return (_take(pixels, idx), _take(coords, idx),
+  return (kransac.take(pixels, idx), kransac.take(coords, idx),
           torch.take_along_dim(valid, idx, dim=-1).to(torch.float32))
 
 
@@ -106,14 +107,6 @@ def sample_hypotheses(w, num_hypotheses: int, sample_size: int,
   return torch.topk(p / q, sample_size, dim=-1).indices
 
 
-def _pick(a, best):
-  """``a``'s row ``best`` along the hypothesis axis, by a gather: a CUDA
-  index read as a Python int would be copied to the host."""
-  n = best.dim()
-  sel = best.reshape(best.shape + (1,) * (a.dim() - n))
-  return torch.take_along_dim(a, sel, dim=n).squeeze(n)
-
-
 def solve_with_indices(uv, X, w, K, idx, config: RansacConfig = RansacConfig(),
                        map_of: torch.Tensor | None = None):
   """Hypothesize from ([T,] M, ``config.draw_size``) index sets into each
@@ -131,43 +124,45 @@ def solve_with_indices(uv, X, w, K, idx, config: RansacConfig = RansacConfig(),
     dict with T_wc ([T,] 4, 4 camera-to-world), num_inliers, inlier_ratio,
     mean_inlier_error_px (([T,]) each).
   """
+  if X.device.type == "cuda":
+    return _solve_on_card(uv, X, w, K, idx, config, map_of)
+  if X.device.type != "cpu":
+    raise ValueError(f"the pose solve runs on cuda or cpu tensors, got "
+                     f"{X.device}")
   cfg = config
-  if map_of is None:  # every hypothesis reads its frame's pool, as views
-    uvh, Xh, wh = uv[..., None, :, :], X[..., None, :, :], w[..., None, :]
-  else:  # ([T,] M, k, ...): its own map's
-    uvh = uv if uv.dim() == 2 else uv[map_of]
-    Xh, wh = X[map_of], w[map_of]
+  uvh, Xh, wh = kransac.per_hypothesis(uv, X, w, map_of)
   with tracing.span("pose.hypothesize"):  # ([T,] M, c, 3, 3): c a draw
-    if cfg.solver == "p3p":  # 4 candidates
-      Rs, ts = p3p.p3p_grunert(_take(uvh, idx), _take(Xh, idx), K)
-    else:
-      Rs, ts = pnp.dlt_pnp(_take(uvh, idx), _take(Xh, idx), K)
-      Rs, ts = Rs[..., None, :, :], ts[..., None, :]
+    Rs, ts = kransac.hypothesize_reference(uvh, Xh, K, idx, cfg.solver)
   with tracing.span("pose.score"):
-    pool = lambda a: a[..., None, :, :]  # against a draw's candidates
-    errs = pnp.reprojection_errors(pool(uvh), pool(Xh), K, Rs, ts)
-    inl = (errs < cfg.inlier_threshold_px).to(torch.float32) \
-        * wh[..., None, :]                                # ([T,] M, c, k)
-    c = Rs.shape[-3]
-    Rs, ts, inl = Rs.flatten(-4, -3), ts.flatten(-3, -2), inl.flatten(-3, -2)
-    best = torch.argmax(torch.sum(inl, dim=-1), dim=-1)
-    R0, t0, inl0 = _pick(Rs, best), _pick(ts, best), _pick(inl, best)
+    inl = kransac.score_reference(uvh, Xh, wh, K, Rs, ts,
+                                  cfg.inlier_threshold_px)
   with tracing.span("pose.refine"):
-    if map_of is not None:  # on the winner's map
-      mb = _pick(map_of, torch.div(best, c, rounding_mode="floor"))
-      X, w = X[mb], w[mb]
-      uv = uv.expand(X.shape[:-1] + (2,)) if uv.dim() == 2 else uv[mb]
-    R, t = pnp.refine_pnp_lm(uv, X, K, R0, t0, inl0, iters=cfg.refine_iters)
-    err_f = pnp.reprojection_errors(uv, X, K, R, t)
-    inl_f = (err_f < cfg.refine_threshold_px).to(torch.float32) * w
-    n_in = torch.sum(inl_f, dim=-1)
-    return {
-        "T_wc": geo.invert_pose(geo.make_pose(R, t)),
-        "num_inliers": n_in,
-        "inlier_ratio": n_in / torch.clamp_min(torch.sum(w, dim=-1), 1.0),
-        "mean_inlier_error_px":
-            torch.sum(err_f * inl_f, dim=-1) / torch.clamp_min(n_in, 1.0),
-    }
+    return kransac.refine_reference(uv, X, w, K, Rs, ts, inl,
+                                    cfg.refine_iters,
+                                    cfg.refine_threshold_px, map_of)
+
+
+def _solve_on_card(uv, X, w, K, idx, cfg, map_of):
+  """``solve_with_indices`` as the three kernels' launches."""
+  one = map_of is None and X.dim() == 2  # a frame without the T axis
+  if one:
+    X, w, idx = X[None], w[None], idx[None]
+  uv, X, w, K, idx = (t.contiguous() for t in (uv, X, w, K, idx))
+  if map_of is not None:
+    map_of = map_of.contiguous()
+  c = kransac.CANDIDATES[cfg.solver]
+  with tracing.span("pose.hypothesize"):
+    cands = kransac.hypothesize(uv, X, K, idx, cfg.solver, map_of)
+  with tracing.span("pose.score"):
+    scores = kransac.score(uv, X, w, K, cands, c, cfg.inlier_threshold_px,
+                           map_of)
+  with tracing.span("pose.refine"):
+    out = kransac.pick_and_refine(uv, X, w, K, cands, scores, c,
+                                  cfg.inlier_threshold_px, cfg.refine_iters,
+                                  cfg.refine_threshold_px, map_of)
+  if not torch.cuda.is_current_stream_capturing():
+    tracing.count("pose.kernel_solves")  # a replay counts in GraphedSolve
+  return {name: v[0] for name, v in out.items()} if one else out
 
 
 def solve_pnp_ransac(pixels, coords, variance, valid, K,
@@ -225,11 +220,14 @@ class GraphedSolve:
 
   A capture is the span ``pose.capture`` and counts one ``pose.captures``
   and one ``host.syncs`` (``torch.cuda.graph`` synchronises); a replay
-  counts one ``pose.replays``."""
+  counts one ``pose.replays`` and, where the capture launched the solve's
+  kernels, one ``pose.kernel_solves`` and their launches
+  (``kernels.launches``)."""
 
   def __init__(self):
     self._key = None
     self.graph = self.inputs = self.out = None
+    self._record = {}  # the capture's kernel launches
 
   def solve(self, coords_map, variance_map, valid_map, K, generator, stride,
             config, map_of=None):
@@ -243,7 +241,10 @@ class GraphedSolve:
         if buf is not None:
           buf.copy_(new)
       self.graph.replay()
+      launches.replayed(self._record)
       tracing.count("pose.replays")
+      if self._record:  # the capture's solve ran the kernels
+        tracing.count("pose.kernel_solves")
       return self.out
     self._key = self.graph = self.out = None  # free the old graph first
     with tracing.span("pose.capture"):
@@ -261,9 +262,10 @@ class GraphedSolve:
       tracing.count("host.syncs")  # torch.cuda.graph synchronises first
       # thread_local, as GraphedStep: only this thread's unsafe calls
       # (a sync, a pageable copy) break the capture
-      with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+      with launches.recorded() as record, torch.cuda.graph(
+          graph, capture_error_mode="thread_local"):
         self.out = self._call(generator, stride, config)
-    self.graph, self._key = graph, key
+    self.graph, self._key, self._record = graph, key, record
     return first
 
   def _call(self, generator, stride, config):

@@ -378,9 +378,11 @@ def test_one_filter_capture_per_graphed_step(cuda, params, traced):
   for f in frames(4):
     reloc.process(f)
   got = tracing.snapshot()
-  # the pose solve captured on the first frame and replayed after it
+  # the pose solve captured on the first frame and replayed after it; the
+  # kernels solve the warm-up and each replay
   assert got["counters"] == {"filter.captures": 1, "pose.captures": 1,
-                             "pose.replays": 3, "host.syncs": 4 + 2}
+                             "pose.replays": 3, "pose.kernel_solves": 1 + 3,
+                             "host.syncs": 4 + 2}
   replays = [s for s in got["spans"] if s.name == "filter.replay"]
   assert len(replays) == 2 and all(s.device_ms > 0 for s in replays)
   capture = [s for s in got["spans"] if s.name == "filter.capture"]
