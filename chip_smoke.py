@@ -805,15 +805,15 @@ def capture_costs(reloc, frames):
     return (time.perf_counter() - t0) * 1e3
   reloc.process(frames[0])
   out = {"capture": ms(frames[1]), "replay": ms(frames[2])}
-  graph = reloc._step
+  graph = reloc._graphs.get("step")
   reloc.reset()
   out["after_reset"] = [ms(frames[3]), ms(frames[4])]
-  kept = reloc._step is graph
+  kept = reloc._graphs.get("step") is graph
   leaf = next(p for p in graph._leaves if p.dim() == 4)
   with torch.no_grad():
     leaf.add_(0.0)  # a new version of the same values
   out["after_weight_update"] = ms(frames[5])
-  if not (kept and reloc._step is not graph):
+  if not (kept and reloc._graphs.get("step") is not graph):
     raise AssertionError("captures: not at the first filter frame and "
                          "after the weight update only")
   return out
@@ -1367,7 +1367,6 @@ def fleet_phase(dev, params, configs_, cfg32, K, fticks, resets, first, later,
   events. Returns ({config: checks}, {config: times})."""
   import numpy as np
   import torch
-  from kfnet_tpu_torch.eval import online
   from kfnet_tpu_torch.eval.online import FleetRelocalizer, OnlineRelocalizer
   from kfnet_tpu_torch.filter import sequence
   from kfnet_tpu_torch.pose import ransac
@@ -1381,7 +1380,7 @@ def fleet_phase(dev, params, configs_, cfg32, K, fticks, resets, first, later,
   fleet_checks, fleets = {}, {}
   for name, c in configs_.items():
     captures.clear()
-    with mock.patch.object(online, "GraphedStep", CountedStep):
+    with mock.patch.object(sequence, "GraphedStep", CountedStep):
       ((fl, outs, states), solves), n = counted(
           wrappers, lambda: counted_solves(lambda: fleet_run(
               FleetRelocalizer, params, c, K, fticks, resets, dev)))
@@ -1443,7 +1442,8 @@ def fleet_phase(dev, params, configs_, cfg32, K, fticks, resets, first, later,
     for _ in range(3):
       piped.process(next(cyc))
     fl = fleets[name]
-    step, frames_dev = fl._step, fl._step.frame.clone()
+    step = fl._graphs["step"]
+    frames_dev = step.frame.clone()
     x, P = fl.state[:2]
     fleet_times[name] = {
         "fleet_tick_ms_b4": cuda_ms(lambda: fl.process(next(cyc)), 8),
@@ -3672,11 +3672,12 @@ def main():
       "graph_vs_eager": graph_vs_eager,
       "host_syncs_in_one_tick": host_syncs(reloc, frames[0]),
   }
-  graph_before = reloc._step
+  graph_before = reloc._graphs.get("step")
   reloc.reset()
   checks["host_syncs_after_reset"] = (host_syncs(reloc, frames[0]) +
                                       host_syncs(reloc, frames[1]))
-  checks["graph_kept_across_reset"] = reloc._step is graph_before
+  checks["graph_kept_across_reset"] = (reloc._graphs.get("step")
+                                       is graph_before)
   say("slice_full_width", t0, config="KFNetConfig() 640x480 bf16", **checks)
   if not graph_vs_eager["held"]:
     raise AssertionError(f"the graphed filter step disagrees with the eager "

@@ -81,12 +81,8 @@ def pin_batch(batch: dict, device) -> dict:
   """A numpy batch as host tensors, page-locked when bound for the card so
   that its copy up can be asynchronous. The batch streams call it in their
   prefetch thread, off the training loop's path."""
-  import torch
-  out = {}
-  for k, v in batch.items():
-    t = torch.from_numpy(v if v.flags.writeable else v.copy())
-    out[k] = t.pin_memory() if device.type == "cuda" else t
-  return out
+  from kfnet_tpu_torch.filter.sequence import host_frames
+  return {k: host_frames(v, device) for k, v in batch.items()}
 
 
 def batch_to_device(batch: dict, device=None) -> dict:

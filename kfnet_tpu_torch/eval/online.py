@@ -39,12 +39,11 @@ import torch
 
 import kfnet_tpu_torch
 from kfnet_tpu_torch.filter import sequence
-from kfnet_tpu_torch.filter.sequence import GraphedStep
 from kfnet_tpu_torch.models import esac, kfnet
 from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.parallel.mesh import Sharded
 from kfnet_tpu_torch.pose import ransac, smoothing
-from kfnet_tpu_torch.utils import tracing
+from kfnet_tpu_torch.utils import graphs, tracing
 
 
 def _consistent_frac(aux) -> torch.Tensor:
@@ -55,19 +54,6 @@ def _slot_fracs(aux) -> torch.Tensor:
   """(B, 1) consistent_frac of each slot; 0 on a slot that reset."""
   frac = aux["consistent"].flatten(1).to(torch.float32).mean(1)
   return torch.where(aux["reset"], torch.zeros_like(frac), frac)[:, None]
-
-
-def _host_frames(images, device: torch.device) -> torch.Tensor:
-  """Frames as a tensor; on the host, in pinned memory when they go to the
-  card, so that their copy there is asynchronous (no stream sync)."""
-  if isinstance(images, np.ndarray):
-    # torch does not wrap read-only arrays (e.g. views of device buffers)
-    images = torch.from_numpy(images if images.flags.writeable
-                              else images.copy())
-  images = torch.as_tensor(images)
-  if device.type == "cuda" and images.device.type == "cpu":
-    images = images.pin_memory()
-  return images
 
 
 def _packed_parts(out):
@@ -88,7 +74,7 @@ class _Relocalizer:
                ransac_config: ransac.RansacConfig | None, stride: int,
                solve_pose: bool, seed: int, device, graph: bool | None):
     self.device = kfnet_tpu_torch.resolve_device(device)
-    self._graph = sequence._use_graph(self.device, graph)
+    self._graph = graphs.use_graph(self.device, graph)
     self._params = L.tree_map(lambda p: p.to(self.device), params)
     self._config = config
     self._K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
@@ -97,32 +83,33 @@ class _Relocalizer:
     self._solve = solve_pose
     self._gen = torch.Generator(device=self.device).manual_seed(seed)
     self._carry = None
-    self._step = None  # the captured filter step (cuda, graph on)
+    self._graphs = {}  # "step": the captured filter step (graph on)
+    # a later frame's (or tick's) filter step; a function, not a bound
+    # method, whose cycle would leave the graphs to a GC inside a capture
+    self._filter = (_Relocalizer._replayed if self._graph
+                    else _Relocalizer._eager)
     self._solver = (ransac.GraphedSolve() if self._graph and solve_pose
                     else None)
 
-  def _replayed(self, frames, fracs, *mask) -> torch.Tensor:
-    """The filter step of the carry and ``frames`` as a graph replay (or,
-    on the first call after a capture, its warm-up); returns ``fracs`` of
-    its aux."""
-    step = self._step
-    if step is not None and step.fits(self._params, frames, self._carry,
-                                      *mask):
-      frac = step.replay(frames, self._carry, *mask)
-    else:
-      self._step = None  # free the old graph's memory first
-      step = self._step = GraphedStep(
-          self._params, self._config, self._carry,
-          frames.to(self.device, non_blocking=True), fracs, *mask)
-      frac = step.first
+  def _replayed(self, frames, outputs, mask=None):
+    step, out = sequence.kept_step(self._graphs, "step", self._params,
+                                   self._config, self._carry, frames,
+                                   outputs, mask)
     self._carry = step.carry
-    return frac
+    return out
+
+  def _eager(self, frames, outputs, mask=None):
+    self._carry, aux = sequence.filter_step(self._params, self._config,
+                                            self._carry, frames, mask)
+    return outputs(aux)
 
   def _first(self, frames):
-    """The carry of a first frame (or tick): its measurement."""
+    """The carry of a first frame (or tick): its measurement; frac 0."""
     image = kfnet.preprocess_images(
         self._config, frames.to(self.device, non_blocking=True))
     self._carry = kfnet.first_step(self._params, self._config, image)
+    return torch.zeros(frames.shape[:-3] + (1,), dtype=torch.float32,
+                       device=self.device)
 
   @property
   def state(self):
@@ -175,20 +162,9 @@ class OnlineRelocalizer(_Relocalizer):
     a new frame shape or a weight update), where each capture synchronises
     once."""
     with tracing.span("online.tick", id=self._frames):
-      frame = _host_frames(image, self.device)
-      if self._carry is None:
-        self._first(frame)
-        frac = torch.zeros((1,), dtype=torch.float32, device=self.device)
-      elif self._graph:
-        frac = self._replayed(frame, _consistent_frac)
-      else:
-        image = kfnet.preprocess_images(
-            self._config, frame.to(self.device, non_blocking=True))
-        x, P, feat = self._carry
-        x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config,
-                                               x, P, feat, image)
-        frac = _consistent_frac(aux)
-        self._carry = (x1, P1, feat1)
+      frame = sequence.host_frames(image, self.device)
+      frac = (self._first(frame) if self._carry is None
+              else self._filter(self, frame, _consistent_frac))
       self._frames += 1
       parts = [frac]
       if self._solve:
@@ -315,25 +291,11 @@ class FleetRelocalizer(_Relocalizer):
   def _mask(self, reset) -> torch.Tensor:
     if reset is None:
       return self._zero_mask
-    mask = torch.as_tensor(np.asarray(reset, bool))
-    if tuple(mask.shape) != (self._B,):
-      raise ValueError(f"reset mask of shape {tuple(mask.shape)}, expected "
+    mask = np.asarray(reset, bool)
+    if mask.shape != (self._B,):
+      raise ValueError(f"reset mask of shape {mask.shape}, expected "
                        f"({self._B},)")
-    if self.device.type == "cuda":
-      mask = mask.pin_memory()
-    return mask.to(self.device, non_blocking=True)
-
-  def _filter(self, frames, mask) -> torch.Tensor:
-    """The filter step of a later tick; returns the (B, 1) fractions."""
-    if not self._graph:
-      image = kfnet.preprocess_images(
-          self._config, frames.to(self.device, non_blocking=True))
-      x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config,
-                                             *self._carry, image)
-      x1, P1 = sequence.restart_slots(mask, x1, P1, aux)
-      self._carry = (x1, P1, feat1)
-      return _slot_fracs(dict(aux, reset=mask))
-    return self._replayed(frames, _slot_fracs, mask)
+    return sequence.frames_to_device(mask, self.device)
 
   def tick(self, images, reset=None) -> torch.Tensor:
     """Enqueue one (B, H, W, 3) tick (uint8 0..255, or float in [0, 1]);
@@ -342,17 +304,15 @@ class FleetRelocalizer(_Relocalizer):
     except on a tick that captures the pose solve's graph or the filter
     step's."""
     with tracing.span("online.tick", id=self._ticks):
-      frames = _host_frames(images, self.device)
+      frames = sequence.host_frames(images, self.device)
       if frames.shape[0] != self._B:
         raise ValueError(f"expected batch {self._B}, got {frames.shape[0]}")
       if self._entries is not None:
         return self._tick_split(frames, reset)
-      if self._carry is None:  # every slot fresh; the mask means nothing
-        self._first(frames)
-        frac = torch.zeros((self._B, 1), dtype=torch.float32,
-                           device=self.device)
-      else:
-        frac = self._filter(frames, self._mask(reset))
+      # on a first tick every slot is fresh; the mask means nothing
+      frac = (self._first(frames) if self._carry is None
+              else self._filter(self, frames, _slot_fracs,
+                                self._mask(reset)))
       self._ticks += 1
       parts = [frac]
       if self._solve:
@@ -456,40 +416,14 @@ def pair_passes(pairs: int):
   return [min(PASS_PAIRS, pairs - i) for i in range(0, pairs, PASS_PAIRS)]
 
 
-class _Captured:
-  """``fn(*inputs)`` as one CUDA graph over static copies of ``inputs``.
-  Made by a call that runs ``fn`` eagerly on a side stream (``first``, that
-  call's result) and then captures it, with ``generator`` registered to the
-  graph: the capture draws nothing and each replay draws the next block,
-  as the eager calls would. A call copies new inputs in and replays;
-  ``out`` is the graph's buffers, which the next replay overwrites.
-  Graphs of one ``pool`` (alternatives, never run at once) share their
-  scratch memory. A capture counts one ``esac.captures`` and one
-  ``host.syncs``, a replay one ``esac.replays``."""
-
-  def __init__(self, fn, inputs, generator=None, pool=None):
-    dev = inputs[0].device
-    self.inputs = tuple(t.clone() for t in inputs)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-      self.first = fn(*self.inputs)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    self.graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-      self.graph.register_generator_state(generator)
-    tracing.count("esac.captures")
-    tracing.count("host.syncs")  # torch.cuda.graph synchronises first
-    with torch.cuda.graph(self.graph, pool=pool,
-                          capture_error_mode="thread_local"):
-      self.out = fn(*self.inputs)
-
-  def __call__(self, *inputs):
-    for buf, new in zip(self.inputs, inputs):
-      buf.copy_(new, non_blocking=True)
-    self.graph.replay()
+def _captured(fn, inputs, **kw):
+  """(the warm-up's result, a replay) of ``fn`` captured now."""
+  tracing.count("esac.captures")
+  graph = graphs.Graph(fn, inputs, **kw)
+  def replay(*inputs):
     tracing.count("esac.replays")
-    return self.out
+    return graph.replay(*inputs)
+  return graph.first, replay
 
 
 class EsacRelocalizer:
@@ -519,11 +453,12 @@ class EsacRelocalizer:
        of slot b reads row b·M + its expert), as ``pose.solve``.
 
   On ``cuda`` the gating, the draw and the solve are CUDA graphs
-  (``_Captured``; the solve a ``pose.ransac.GraphedSolve``, one key
-  whatever the pairs), and the expert pass one graph for each number of
-  pairs from 1 to ``PASS_PAIRS`` (at most B·M), all captured on the first
-  tick, in one memory pool. ``graph=False``, and the CPU, run everything
-  eagerly, in the same passes. The surface's generator gives, tick after
+  (``utils/graphs.Graph``; the solve a ``pose.ransac.GraphedSolve``, one
+  key whatever the pairs), and the expert pass one graph for each number
+  of pairs from 1 to ``PASS_PAIRS`` (at most B·M), all captured on the
+  first tick, in one memory pool (counted as ``esac.captures`` and
+  ``esac.replays``). ``graph=False``, and the CPU, run everything eagerly,
+  in the same passes. The surface's generator gives, tick after
   tick, the draw's (B, ``num_hypotheses``) uniforms and the solve's keys,
   in the same order graphed or eager.
 
@@ -535,7 +470,7 @@ class EsacRelocalizer:
                stride: int = esac.OUTPUT_STRIDE, seed: int = 0, device=None,
                graph: bool | None = None):
     self.device = kfnet_tpu_torch.resolve_device(device)
-    self._graph = sequence._use_graph(self.device, graph)
+    self._graph = graphs.use_graph(self.device, graph)
     self._config = config
     self._B, self._M = batch_size, config.num_experts
     on = lambda t: t.to(self.device)
@@ -548,8 +483,9 @@ class EsacRelocalizer:
     self._gen = torch.Generator(device=self.device).manual_seed(seed)
     self._ticks = 0
     self._maps = self._valid = None    # the (B·M, h, w, ...) stacks
-    self._gate = self._route = None     # their graphs (cuda, graph on)
-    self._passes = {}                   # pairs -> the expert pass's graph
+    # with graphs, a later tick's "gate", "route" and pass of each size (a
+    # part of no entry runs eagerly; no bound method kept: no cycle)
+    self._parts = {}
     self._solver = ransac.GraphedSolve() if self._graph else None
     self.last = None  # the last tick's (probs, map_of, pairs) on the device
 
@@ -573,23 +509,23 @@ class EsacRelocalizer:
     self._maps.index_copy_(0, pairs, maps)
 
   def _first_tick(self, frames):
-    """Allocate the stacks; on ``cuda`` with graphs, capture the gating,
-    the draw and the expert pass of every size."""
+    """Allocate the stacks; returns the first tick's parts. With graphs,
+    captures the later ticks': this one takes gating and draw warm-ups."""
     h, w = esac.map_shape(tuple(frames.shape[1:]))
     n = self._B * self._M
     self._maps = torch.zeros((n, h, w, 3), device=self.device)
     self._valid = torch.ones((n, h, w), dtype=torch.bool, device=self.device)
     if not self._graph:
-      return
-    self._gate = _Captured(self._gate_fn, (frames,))
-    self._route = _Captured(self._route_fn, (self._gate.first[1],),
-                            generator=self._gen)
+      return self._parts
+    gated, self._parts["gate"] = _captured(self._gate_fn, (frames,))
+    routed, self._parts["route"] = _captured(self._route_fn, (gated[1],),
+                                             generator=self._gen)
     pool = torch.cuda.graph_pool_handle()
-    image = self._gate.first[0]
     for size in range(1, min(PASS_PAIRS, n) + 1):
       pairs = torch.arange(size, device=self.device)
-      self._passes[size] = _Captured(self._experts_fn, (image, pairs),
-                                     pool=pool)
+      _, self._parts[size] = _captured(self._experts_fn, (gated[0], pairs),
+                                       pool=pool)
+    return {"gate": lambda _: gated, "route": lambda _: routed}
 
   @property
   def maps(self) -> torch.Tensor:
@@ -598,27 +534,21 @@ class EsacRelocalizer:
     buffer on ``cuda``: clone what is kept)."""
     return self._maps
 
-  def _gated(self, frames, first: bool):
+  def _gated(self, frames, parts):
     """The gating of a tick's frames: (luma (B, 1, H, W), probs (B, M))."""
     with tracing.span("esac.gate", device=self.device):
-      if self._gate is None:
-        return self._gate_fn(frames)
-      return self._gate.first if first else self._gate(frames)
+      return parts.get("gate", self._gate_fn)(frames)
 
-  def _run_pairs(self, image, pairs: np.ndarray, first: bool):
+  def _run_pairs(self, image, pairs: np.ndarray, parts):
     """The grouped expert passes of the (P,) flat pairs b·M + e (sorted);
     returns the pairs on the device."""
     with tracing.span("esac.experts", device=self.device):
-      index = _host_frames(torch.from_numpy(pairs.astype(np.int64)),
-                           self.device).to(self.device, non_blocking=True)
+      index = sequence.frames_to_device(pairs.astype(np.int64), self.device)
       at = 0
       for size in pair_passes(len(pairs)):
         part = index[at:at + size]
         at += size
-        if self._passes and not first:
-          self._passes[size](image, part)
-        else:  # eager, or a capture's warm-up ran other pairs
-          self._experts_fn(image, part)
+        parts.get(size, self._experts_fn)(image, part)
       return index
 
   def tick(self, images) -> torch.Tensor:
@@ -627,25 +557,20 @@ class EsacRelocalizer:
     the device, for the drawn pairs (and on the first tick for each
     capture)."""
     with tracing.span("online.tick", id=self._ticks):
-      frames = _host_frames(images, self.device).to(self.device,
-                                                    non_blocking=True)
+      frames = sequence.frames_to_device(images, self.device)
       if frames.shape[0] != self._B:
         raise ValueError(f"expected batch {self._B}, got {frames.shape[0]}")
-      first = self._maps is None
-      if first:
-        self._first_tick(frames)
-      image, probs = self._gated(frames, first)
+      parts = (self._first_tick(frames) if self._maps is None
+               else self._parts)
+      image, probs = self._gated(frames, parts)
       with tracing.span("esac.route"):
-        if self._route is None:
-          map_of, counts = self._route_fn(probs)
-        else:
-          map_of, counts = self._route.first if first else self._route(probs)
+        map_of, counts = parts.get("route", self._route_fn)(probs)
         tracing.count("host.syncs")
         drawn = counts.cpu().numpy() > 0  # the tick's read-back
       pairs = np.flatnonzero(drawn)
       tracing.count("esac.expert_runs", len(pairs))
       tracing.count("esac.experts_drawn", int(drawn.any(0).sum()))
-      index = self._run_pairs(image, pairs, first)
+      index = self._run_pairs(image, pairs, parts)
       self.last = (probs, map_of, index)
       self._ticks += 1
       out = ransac.solve_pnp_from_maps(

@@ -28,141 +28,87 @@ import numpy as np
 import torch
 
 import kfnet_tpu_torch
-from kfnet_tpu_torch.kernels import launches
 from kfnet_tpu_torch.models import kfnet
 from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.parallel import mesh as mesh_lib
-from kfnet_tpu_torch.utils import tracing
+from kfnet_tpu_torch.utils import graphs, tracing
 
 
-class GraphedStep:
-  """One filter step as one CUDA graph over static buffers: the carry (x,
-  P, features) and the frame. A replay reads them and writes the new carry
-  back into the carry's buffers, so the next replay finds it there.
-  ``outputs(aux)`` picks what else the step gives (the graph's static
-  outputs, overwritten by every replay); ``first`` is the warm-up's, the
-  capturing frame's result.
+def filter_step(params, config, carry, frame, mask=None):
+  """The one filter step of the surfaces and runners, eager or graphed:
+  (new (x, P, features) carry, aux) of ``frame`` (raw or preprocessed,
+  moved to the carry's device). Each slot of a (B,) bool ``mask`` starts
+  over at this frame, its posterior the measurement (z, V), and aux has
+  ``reset`` (the mask)."""
+  frame = frame.to(carry[0].device, non_blocking=True)
+  image = kfnet.preprocess_images(config, frame)
+  x1, P1, feat1, aux = kfnet.filter_step(params, config, *carry, image)
+  if mask is not None:
+    m = mask[:, None, None, None]
+    x1, P1 = torch.where(m, aux["z"], x1), torch.where(m, aux["V"], P1)
+    aux = dict(aux, reset=mask)
+  return (x1, P1, feat1), aux
 
-  With a (B,) bool ``mask`` (a batch of B streams), the step also takes a
-  per-slot reset: a slot whose mask is set starts over at this frame, its
-  posterior the frame's measurement (z, V), as ``kfnet.first_step`` gives
-  it, and its aux has ``reset`` (the mask). The mask is a static buffer
-  that each replay copies into, so a reset never captures again.
 
-  The graph holds the addresses of the weights and of the conv kernels'
-  prepared weight layouts, so it is valid while no held weight has been
-  updated in place or replaced (``fits``). A capture that fails raises.
-
-  Building one is the span ``filter.capture`` (``utils/tracing.py``) and
-  counts one ``filter.captures`` and one ``host.syncs``; a replay is the
-  span ``filter.replay``, timed on the device by CUDA events."""
+class GraphedStep(graphs.Graph):
+  """``filter_step`` as one CUDA graph over static buffers: the carry (x,
+  P, features), the frame (copied to the carry's device) and the reset
+  ``mask`` where given, so a reset never captures again. A replay writes
+  the new carry back into the carry's buffers. ``outputs(aux)`` picks what
+  else the step gives. The graph holds the weights' addresses: it is valid
+  while none is updated in place or replaced (``fits``). Building one is
+  the span ``filter.capture`` and counts one ``filter.captures``; a replay
+  is the span ``filter.replay``, timed by CUDA events."""
 
   def __init__(self, params, config, carry, frame, outputs, mask=None):
-    self._params, self._config, self._outputs = params, config, outputs
+    self._params = params
     self._leaves = L.tree_leaves(params)
     self._weights = self._weight_state()
+    frame = frame.to(carry[0].device, non_blocking=True)
+
+    def body(x, P, feat, frame, mask):
+      new, aux = filter_step(params, config, (x, P, feat), frame, mask)
+      for buf, t in zip((x, P, feat), new):
+        buf.copy_(t)
+      return outputs(aux)
+
     with tracing.span("filter.capture"):
-      self.carry = tuple(t.clone() for t in carry)
-      self.frame = frame.clone()
-      self.mask = None if mask is None else mask.clone()
-      dev = frame.device
-      side = torch.cuda.Stream(dev)
-      side.wait_stream(torch.cuda.current_stream(dev))
-      with torch.cuda.stream(side):  # warm-up: this frame's step, eagerly
-        self.first = self._body()
-      torch.cuda.current_stream(dev).wait_stream(side)
-      self.graph = torch.cuda.CUDAGraph()
       tracing.count("filter.captures")
-      tracing.count("host.syncs")  # torch.cuda.graph synchronises first
-      # thread_local: the capture refuses unsafe CUDA calls (a sync, a
-      # pageable copy) made by this thread, which would break the graph,
-      # while calls from other threads of a server (pinning the next
-      # frame, say) cannot invalidate it
-      with launches.recorded() as self.recorded, torch.cuda.graph(
-          self.graph, capture_error_mode="thread_local"):
-        self.out = self._body()
+      super().__init__(body, (*carry, frame, mask))
+    self.carry = self.inputs[:3]
+    self.frame, self.mask = self.inputs[3:]
 
   def _weight_state(self):
     return tuple((t._version, t.data_ptr()) for t in self._leaves)
 
-  def _body(self):
-    x, P, feat = self.carry
-    image = kfnet.preprocess_images(self._config, self.frame)
-    x1, P1, feat1, aux = kfnet.filter_step(self._params, self._config, x, P,
-                                           feat, image)
-    if self.mask is not None:
-      x1, P1 = restart_slots(self.mask, x1, P1, aux)
-      aux = dict(aux, reset=self.mask)
-    for buf, new in zip(self.carry, (x1, P1, feat1)):
-      buf.copy_(new)
-    return self._outputs(aux)
-
   def fits(self, params, frame, carry, mask=None) -> bool:
     """Whether a replay computes this frame's step from ``carry`` with
-    ``params``: the captured params object, same frame and carry shapes and
-    types, a mask where the capture had one, and no held weight updated in
-    place or replaced since capture."""
+    ``params``: the captured params object, the carry's, frame's and mask's
+    shapes and types, and no held weight updated in place or replaced."""
     return (params is self._params and
-            (mask is None) == (self.mask is None) and
-            (mask is None or mask.shape == self.mask.shape) and
-            frame.shape == self.frame.shape and
-            frame.dtype == self.frame.dtype and
-            all(a.shape == b.shape and a.dtype == b.dtype
-                for a, b in zip(carry, self.carry)) and
+            all((a is None) == (b is None) and
+                (a is None or (a.shape, a.dtype) == (b.shape, b.dtype))
+                for a, b in zip((*carry, frame, mask), self.inputs)) and
             self._weight_state() == self._weights)
 
   def replay(self, frame, carry, mask=None):
-    """This frame's step from ``carry`` (and the slots' reset ``mask``):
-    copied into the carry's buffers first unless it is already there (it
-    is after the graph's own step)."""
+    """This frame's step from ``carry`` (and the slots' reset ``mask``)."""
     with tracing.span("filter.replay", device=self.frame.device):
-      if carry is not self.carry:
-        for buf, new in zip(self.carry, carry):
-          buf.copy_(new)
-      self.frame.copy_(frame, non_blocking=True)
-      if mask is not None:
-        self.mask.copy_(mask, non_blocking=True)
-      self.graph.replay()
-      launches.replayed(self.recorded)
-      return self.out
+      return super().replay(*carry, frame, mask)
 
 
-def restart_slots(mask, x1, P1, aux):
-  """(x1, P1) with each slot of the (B,) bool ``mask`` replaced by its
-  measurement (aux's z, V): a stream that starts over at this frame."""
-  m = mask[:, None, None, None]
-  return torch.where(m, aux["z"], x1), torch.where(m, aux["V"], P1)
+def kept_step(held: dict, slot, params, config, carry, frame, outputs,
+              mask=None):
+  """(the ``GraphedStep`` kept in ``held[slot]``, this frame's outputs): a
+  replay where it fits, else a new capture's warm-up."""
+  step, built = graphs.kept(
+      held, slot, lambda s: s.fits(params, frame, carry, mask),
+      lambda: GraphedStep(params, config, carry, frame, outputs, mask))
+  return step, (step.first if built else step.replay(frame, carry, mask))
 
 
-# The captured steps of run_filter and its forms, one per key of _graph_key.
+# run_filter's steps, by config, frame shape/type/device, return_aux, entry
 _graphs: dict = {}
-
-
-def _all_aux(aux):
-  return aux
-
-
-def _no_aux(aux):
-  return {}
-
-
-def _graph_key(config, frame, return_aux, entry=None):
-  return (config, tuple(frame.shape), frame.dtype, frame.device, return_aux,
-          entry)
-
-
-def _captured_step(params, config, carry, frame, return_aux, entry=None):
-  """(step, its outputs for this frame): the kept graph replayed when it
-  fits, else a new capture (whose warm-up is this frame's step). ``entry``
-  keeps one graph per (mesh, entry): a mesh may name one device twice."""
-  key = _graph_key(config, frame, return_aux, entry)
-  step = _graphs.get(key)
-  if step is not None and step.fits(params, frame, carry):
-    return step, step.replay(frame, carry)
-  _graphs.pop(key, None)  # free the old graph's memory first
-  step = _graphs[key] = GraphedStep(params, config, carry, frame,
-                                    _all_aux if return_aux else _no_aux)
-  return step, step.first
 
 
 def _on(t: torch.Tensor, device: torch.device) -> bool:
@@ -185,24 +131,23 @@ def placed(params, device):
   return L.tree_map(lambda p: p.to(device), params), device
 
 
-def _use_graph(device: torch.device, graph: bool | None) -> bool:
-  if graph is None:
-    return device.type == "cuda"
-  if graph and device.type != "cuda":
-    raise ValueError(f"graph=True needs a CUDA device, got {device}")
-  return graph
-
-
-def frames_to_device(images, device: torch.device) -> torch.Tensor:
-  """A frame stack as a tensor on ``device``; a host stack bound for the
-  card is copied from pinned memory, asynchronously."""
+def host_frames(images, device: torch.device) -> torch.Tensor:
+  """Frames as a tensor; on the host, in pinned memory when they go to the
+  card, so that their copy there is asynchronous (no stream sync)."""
   if isinstance(images, np.ndarray):
+    # torch does not wrap read-only arrays (e.g. views of device buffers)
     images = torch.from_numpy(images if images.flags.writeable
                               else images.copy())
   images = torch.as_tensor(images)
   if device.type == "cuda" and images.device.type == "cpu":
     images = images.pin_memory()
-  return images.to(device, non_blocking=True)
+  return images
+
+
+def frames_to_device(images, device: torch.device) -> torch.Tensor:
+  """A frame stack as a tensor on ``device``; a host stack bound for the
+  card is copied from pinned memory, asynchronously."""
+  return host_frames(images, device).to(device, non_blocking=True)
 
 
 def _filter_steps(params, config, frames, carry, return_aux, graph,
@@ -217,12 +162,12 @@ def _filter_steps(params, config, frames, carry, return_aux, graph,
   step = None
   for t in range(n):
     if not graph:
-      x1, P1, feat1, aux = kfnet.filter_step(params, config, *carry,
-                                             frames[t])
-      carry = (x1, P1, feat1)
+      carry, aux = filter_step(params, config, carry, frames[t])
     elif step is None:  # the weights are checked once a call
-      step, aux = _captured_step(params, config, carry, frames[t],
-                                 return_aux, entry)
+      step, aux = kept_step(
+          _graphs, (config, frames.shape[1:], frames.dtype, frames.device,
+                    return_aux, entry), params, config, carry, frames[t],
+          (lambda a: a) if return_aux else (lambda a: {}))
       carry = step.carry
     else:
       aux = step.replay(frames[t], carry)
@@ -260,7 +205,7 @@ def run_filter(params, config: kfnet.KFNetConfig, images,
     1..T-1 (of every frame when resuming).
   """
   params, device = placed(params, device)
-  graph = _use_graph(device, graph)
+  graph = graphs.use_graph(device, graph)
   return _run_filter(params, config, frames_to_device(images, device), carry,
                      return_aux, graph)
 
@@ -346,7 +291,7 @@ def run_filter_chunked_arrays(params, config: kfnet.KFNetConfig,
   first, then the exception propagates on the consumer's next ``next()``.
   """
   params, device = placed(params, device)
-  graph = _use_graph(device, graph)
+  graph = graphs.use_graph(device, graph)
   copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
   def flush(chunk, carry, index):
@@ -490,7 +435,7 @@ def run_filter_fleet(params, config: kfnet.KFNetConfig, images, mesh,
   for i, (dev, frames) in enumerate(zip(mesh.devices, shards.shards)):
     p = _fleet_params.get(params, dev)
     x, P, _ = _run_filter(p, config, frames, None, False,
-                          _use_graph(dev, None), entry=(mesh, i))
+                          graphs.use_graph(dev, None), entry=(mesh, i))
     xs.append(x)
     Ps.append(P)
   return (mesh_lib.Sharded(xs, 1, mesh.devices),

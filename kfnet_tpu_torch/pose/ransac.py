@@ -39,9 +39,8 @@ import dataclasses
 import torch
 
 from kfnet_tpu_torch.core import geometry as geo
-from kfnet_tpu_torch.kernels import launches
 from kfnet_tpu_torch.kernels import ransac as kransac
-from kfnet_tpu_torch.utils import tracing
+from kfnet_tpu_torch.utils import graphs, tracing
 
 SOLVERS = ("dlt", "p3p")
 
@@ -200,34 +199,23 @@ def _solve_maps(coords_map, variance_map, valid_map, K, generator, stride,
 
 
 class GraphedSolve:
-  """A serving surface's pose solve as one CUDA graph over static buffers:
-  the x map ([T,] h, w, 3), the P map ([T,] h, w, 1), the valid map and K
-  (and ``map_of`` for several maps a frame; a None map is none).
-  A surface holds one and hands it to every ``solve_pnp_from_maps`` call
-  (``graphed=``); it keeps one capture at a time, keyed by the maps'
-  shapes, dtypes and device, K's, the RANSAC config, the stride and the
-  generator.
-
-  A call with a new key solves eagerly on a side stream (the warm-up: this
-  call's result, which draws this call's block of keys from the
-  generator), then captures the solve with the generator registered to
-  the graph, so that the capture draws nothing and each replay draws the
-  next block: solve i of a surface uses the i-th block of a generator
-  seeded with its seed, as the eager solve does. Every later call with the
-  key copies the maps into the buffers and replays. The outputs of a
-  replay are the graph's buffers (``out``), which the next replay
-  overwrites: copy what is kept.
-
-  A capture is the span ``pose.capture`` and counts one ``pose.captures``
-  and one ``host.syncs`` (``torch.cuda.graph`` synchronises); a replay
-  counts one ``pose.replays`` and, where the capture launched the solve's
-  kernels, one ``pose.kernel_solves`` and their launches
-  (``kernels.launches``)."""
+  """A serving surface's pose solve (``graphed=`` of every
+  ``solve_pnp_from_maps`` call) as one CUDA graph (``utils/graphs.py``)
+  over the x, P and valid maps, K and ``map_of`` (None: none). It keeps
+  one capture, keyed by their shapes, dtypes and devices, the RANSAC
+  config, the stride and the generator, which is registered: solve i draws
+  its i-th block, as the eager solve does. A replay's outputs are the
+  graph's buffers. A capture is the span ``pose.capture``, counted in
+  ``pose.captures``; a replay counts one ``pose.replays`` and, where the
+  capture launched the solve's kernels, one ``pose.kernel_solves``."""
 
   def __init__(self):
     self._key = None
-    self.graph = self.inputs = self.out = None
-    self._record = {}  # the capture's kernel launches
+    self._held = {}  # None: the kept capture, whose graph, inputs and out
+
+  graph = property(lambda self: self._held[None].graph)
+  inputs = property(lambda self: self._held[None].inputs)
+  out = property(lambda self: self._held[None].out)
 
   def solve(self, coords_map, variance_map, valid_map, K, generator, stride,
             config, map_of=None):
@@ -236,41 +224,23 @@ class GraphedSolve:
     maps = (coords_map, variance_map, valid_map, K, map_of)
     key = (tuple(None if t is None else (tuple(t.shape), t.dtype, t.device)
                  for t in maps), generator, stride, config)
-    if key == self._key:
-      for buf, new in zip(self.inputs, maps):
-        if buf is not None:
-          buf.copy_(new)
-      self.graph.replay()
-      launches.replayed(self._record)
-      tracing.count("pose.replays")
-      if self._record:  # the capture's solve ran the kernels
-        tracing.count("pose.kernel_solves")
-      return self.out
-    self._key = self.graph = self.out = None  # free the old graph first
-    with tracing.span("pose.capture"):
-      self.inputs = tuple(None if t is None else t.clone() for t in maps)
-      dev = coords_map.device
-      side = torch.cuda.Stream(dev)
-      side.wait_stream(torch.cuda.current_stream(dev))
-      with torch.cuda.stream(side):  # warm-up: this call's solve, eagerly
-        first = self._call(generator, stride, config)
-      torch.cuda.current_stream(dev).wait_stream(side)
-      graph = torch.cuda.CUDAGraph()
-      if generator is not None:  # the default one is registered anyway
-        graph.register_generator_state(generator)
-      tracing.count("pose.captures")
-      tracing.count("host.syncs")  # torch.cuda.graph synchronises first
-      # thread_local, as GraphedStep: only this thread's unsafe calls
-      # (a sync, a pageable copy) break the capture
-      with launches.recorded() as record, torch.cuda.graph(
-          graph, capture_error_mode="thread_local"):
-        self.out = self._call(generator, stride, config)
-    self.graph, self._key, self._record = graph, key, record
-    return first
 
-  def _call(self, generator, stride, config):
-    x, P, valid, K, map_of = self.inputs
-    return _solve_maps(x, P, valid, K, generator, stride, config, map_of)
+    def capture():
+      with tracing.span("pose.capture"):
+        tracing.count("pose.captures")
+        return graphs.Graph(lambda x, P, v, K, m: _solve_maps(
+            x, P, v, K, generator, stride, config, m), maps, generator)
+
+    held, built = graphs.kept(self._held, None, lambda _: key == self._key,
+                              capture)
+    self._key = key
+    if built:
+      return held.first
+    out = held.replay(*maps)
+    tracing.count("pose.replays")
+    if held.record:  # the capture's solve ran the kernels
+      tracing.count("pose.kernel_solves")
+    return out
 
 
 def solve_pnp_from_maps(coords_map, variance_map, valid_map, K,

@@ -565,7 +565,7 @@ def test_graphed_relocaliser_matches_eager_and_counts_under_replay(cuda,
   before = [c.launches for c in counters]
   graphed, packed_g = _served(params, cfg, cuda, frames)
   ran = [c.launches - b for c, b in zip(counters, before)]
-  assert graphed._step is not None  # captured, then replayed
+  assert "step" in graphed._graphs  # captured, then replayed
   eager, packed_e = _served(params, cfg, cuda, frames, graph=False)
   first = kfnet.kernel_shapes(cfg, (48, 64, 3), first=True)
   later = kfnet.kernel_shapes(cfg, (48, 64, 3))
@@ -591,7 +591,7 @@ def test_weight_update_between_ticks_reaches_the_replay(cuda, config):
   for f in frames[:3]:
     graphed.process(f)
     eager.process(f)
-  step = graphed._step
+  step = graphed._graphs.get("step")
   stale = OnlineRelocalizer(  # the carry and weights before the update
       params, cfg, K_SMALL, device=cuda, solve_pose=False, graph=False)
   stale._carry = tuple(t.clone() for t in eager.state)
@@ -606,7 +606,7 @@ def test_weight_update_between_ticks_reaches_the_replay(cuda, config):
       w.add_(torch.randn(w.shape, generator=gen, device=cuda) * w.std())
   graphed.process(frames[3])
   eager.process(frames[3])
-  assert graphed._step is not step  # captured again
+  assert graphed._graphs.get("step") is not step  # captured again
   for g, e in zip(graphed.state, eager.state):
     np.testing.assert_allclose(g.float().cpu().numpy(),
                                e.float().cpu().numpy(), rtol=1e-3, atol=1e-3)
@@ -629,14 +629,14 @@ def test_reset_replays_the_graph_from_the_new_carry(cuda, config):
   for rl in (graphed, eager):
     for f in frames[:3]:
       rl.process(f)
-  step = graphed._step
+  step = graphed._graphs.get("step")
   before = tff.fused_filter_step.launches
   packed = []
   for rl in (graphed, eager):
     rl.reset()
     assert rl.state is None
     packed.append([rl.tick(f).cpu() for f in frames[3:]])
-  assert graphed._step is step  # replayed, not captured again
+  assert graphed._graphs.get("step") is step  # replayed, not captured again
   assert tff.fused_filter_step.launches == before + 2 * 2
   for g, e in zip(*packed):
     np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=1e-3, atol=1e-3)
@@ -691,11 +691,10 @@ def test_graphed_run_filter_matches_eager_and_counts(cuda, config):
     assert [c.launches - b for c, b in zip(counters, before)] == want, name
     held(got)
   # a second graphed call replays the kept graph from frame 1 on
-  key = sequence._graph_key(cfg, kfnet.preprocess_images(cfg, dev_frames[1]),
-                            False)
-  step = sequence._graphs[key]
+  kept = dict(sequence._graphs)
+  assert kept
   held(runs["graphed"]())
-  assert sequence._graphs[key] is step
+  assert sequence._graphs == kept  # the same graph under each key
   _, _, _, aux = sequence.run_filter(params, cfg, dev_frames,
                                      return_aux=True)
   _, _, _, aux_e = sequence.run_filter(params, cfg, dev_frames,
@@ -785,13 +784,13 @@ def test_graphed_fleet_matches_eager_and_keeps_its_graph(cuda, config):
     for t in range(T):
       out.append(fleet.tick(ticks[t], reset=resets[t]).cpu())
       if t == 1:
-        step = fleet._step
+        step = fleet._graphs.get("step")
     assert [c.launches - b for c, b in zip(counters, before)] == (
         [T - 1] + [B * (len(first[k]) + (T - 1) * len(later[k]))
                    for k in ("conv3x3_same", "conv3x3_gn_chain")])
     runs[graph] = (out, [s.clone() for s in fleet.state])
     if graph:
-      assert step is not None and fleet._step is step
+      assert step is not None and fleet._graphs.get("step") is step
   for g, e in zip(runs[True][0], runs[False][0]):
     np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=1e-3, atol=1e-3)
     assert g.shape == (B, 19)
@@ -1156,8 +1155,8 @@ def test_fleet_over_a_repeated_card_mesh(cuda):
     p1, _ = one.process(frames[t])
     p4, _ = split.process(frames[t])
     np.testing.assert_allclose(p4, p1, atol=1e-3)
-  steps = {id(e._step) for e in split._entries}
-  assert len(steps) == 4 and None not in {e._step for e in split._entries}
+  steps = [e._graphs.get("step") for e in split._entries]
+  assert len({id(s) for s in steps}) == 4 and None not in steps
 
 
 def test_fit_on_a_repeated_card_mesh(cuda):

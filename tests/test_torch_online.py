@@ -99,4 +99,4 @@ def test_graph_needs_a_cuda_device(setup):
   imgs = np.asarray(tc.random_images(2, seed=9))
   for img in imgs:
     reloc.process(img)
-  assert reloc._step is None and reloc.state[0].shape == (6, 8, 3)
+  assert reloc._graphs == {} and reloc.state[0].shape == (6, 8, 3)

@@ -6,29 +6,38 @@ session drops the last, and the profiler's chrome trace holds each span as
 a range of the same name on one clock with the span's own stamps (the
 durations within 50 us, one offset for all); the pose solve's four stages
 nest in order inside it; a served tick counts one ``host.syncs`` a
-finalized tick. The tests marked ``cuda`` count one ``filter.captures``
-per captured step and hold ``host.syncs`` against torch's own detection
-of host syncs on both serving surfaces. This file imports only torch,
-numpy and kfnet_tpu_torch:
+finalized tick. With torch's CUDA graph calls faked, every user of
+``utils/graphs.py`` (the filter step of both surfaces and of run_filter,
+the pose solve, ESAC's parts) is rehearsed on the CPU: when it captures,
+what a replay copies in, which generator and pool a capture takes, and
+kernel launches counted once a replay. The tests marked ``cuda`` count
+one ``filter.captures`` per captured step and hold ``host.syncs`` against
+torch's own detection of host syncs on both serving surfaces. This file
+imports only torch, numpy and kfnet_tpu_torch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py
 """
 
 import collections
 import contextlib
+import gc
 import json
 import unittest.mock as mock
 import warnings
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
-from kfnet_tpu_torch.eval.online import FleetRelocalizer, OnlineRelocalizer
+from kfnet_tpu_torch.eval.online import (EsacRelocalizer, FleetRelocalizer,
+                                         OnlineRelocalizer, pair_passes)
 from kfnet_tpu_torch.filter import sequence
-from kfnet_tpu_torch.models import kfnet, oflownet, scoordnet
+from kfnet_tpu_torch.kernels import launches
+from kfnet_tpu_torch.models import esac, kfnet, oflownet, scoordnet
+from kfnet_tpu_torch.nn import layers as L
 from kfnet_tpu_torch.pose import ransac
-from kfnet_tpu_torch.utils import timing, tracing
+from kfnet_tpu_torch.utils import graphs, timing, tracing
 
 CFG = kfnet.KFNetConfig(
     scoordnet=scoordnet.SCoordNetConfig(
@@ -275,10 +284,14 @@ def test_the_cpu_serves_the_eager_solve_with_its_stages(params, traced,
 
 class _FakeGraph:
   """``torch.cuda.CUDAGraph`` on the CPU: records the generators
-  registered to it and counts its replays (which recompute nothing)."""
+  registered to it and the memory pool it was captured in, and counts its
+  replays (which recompute nothing). Every one made is in ``made``."""
+
+  made: list = []
 
   def __init__(self):
-    self.generators, self.replays = [], 0
+    self.generators, self.replays, self.pool = [], 0, None
+    _FakeGraph.made.append(self)
 
   def register_generator_state(self, gen):
     self.generators.append(gen)
@@ -288,11 +301,13 @@ class _FakeGraph:
 
 
 @contextlib.contextmanager
-def _fake_capture(graph, capture_error_mode):
+def _fake_capture(graph, pool=None, capture_error_mode="global"):
   """``torch.cuda.graph`` on the CPU: the body runs eagerly, as the capture
-  records it, seen as capturing by the tracer, with the registered
-  generators' states put back after it (a capture draws nothing)."""
+  records it, seen as capturing by the tracer and the launch counters,
+  with the registered generators' states put back after it (a capture
+  draws nothing)."""
   assert capture_error_mode == "thread_local"
+  graph.pool = pool
   states = [g.get_state() for g in graph.generators]
   with mock.patch.object(torch.cuda, "is_initialized", return_value=True), \
       mock.patch.object(torch.cuda, "is_current_stream_capturing",
@@ -304,16 +319,287 @@ def _fake_capture(graph, capture_error_mode):
 
 @pytest.fixture
 def fake_cuda_graphs():
-  """The CUDA calls of ``GraphedSolve`` replaced so that it runs on the
-  CPU: the control flow of a capture and its replays, not their values."""
+  """The CUDA calls of ``utils/graphs.py`` replaced so that every graph
+  user (the filter step, the pose solve, ESAC's parts) runs graphed on the
+  CPU, where ``graph`` is not False: the control flow of a capture and its
+  replays, not their values (a fake capture runs its body once more, a
+  fake replay computes nothing). Yields the fake graphs made, in order."""
   stream = mock.Mock()
+  _FakeGraph.made = []
   with mock.patch.object(torch.cuda, "Stream", return_value=stream), \
       mock.patch.object(torch.cuda, "current_stream", return_value=stream), \
       mock.patch.object(torch.cuda, "stream",
                         side_effect=lambda s: contextlib.nullcontext()), \
       mock.patch.object(torch.cuda, "CUDAGraph", _FakeGraph), \
-      mock.patch.object(torch.cuda, "graph", _fake_capture):
-    yield
+      mock.patch.object(torch.cuda, "graph", _fake_capture), \
+      mock.patch.object(torch.cuda, "graph_pool_handle", object), \
+      mock.patch.object(torch.cuda, "is_current_stream_capturing",
+                        return_value=False), \
+      mock.patch.object(graphs, "use_graph",
+                        lambda device, graph: graph is not False), \
+      mock.patch.dict(sequence._graphs, clear=True):
+    yield _FakeGraph.made
+
+
+class _Wrapper:
+  """A kernel wrapper as ``kernels/launches.py`` counts it."""
+  launches = 0
+
+
+def test_the_mechanism_clones_copies_in_and_keeps_one_graph_a_slot(
+    fake_cuda_graphs):
+  """``graphs.Graph``: a None input stays None, the warm-up runs on the
+  clones and is the building call's result; a replay copies each new
+  input into its buffer (none that is its buffer already), counts the
+  capture's launches and returns the capture's outputs. ``graphs.kept``
+  replays a graph that fits and drops an old one before building anew."""
+  wrapper = _Wrapper()
+  seen = []
+
+  def fn(a, none, b):
+    seen.append((a, none, b))
+    launches.count(wrapper)
+    return a + b
+
+  a, b = torch.ones(3), torch.arange(3.0)
+  g = graphs.Graph(fn, (a, None, b))
+  assert g.inputs[1] is None and g.inputs[0] is not a
+  assert all(x is y for x, y in zip(seen[0], g.inputs))
+  assert torch.equal(g.first, a + b) and g.first is not g.out
+  assert wrapper.launches == 1 and g.record == {wrapper: 1}
+  buf = g.inputs[0]
+  assert g.replay(buf, None, torch.full((3,), 5.0)) is g.out
+  assert g.inputs[0] is buf and torch.equal(g.inputs[2], torch.full((3,), 5.))
+  assert wrapper.launches == 2 and g.graph.replays == 1
+  held, builds = {}, []
+
+  def build():
+    builds.append(dict(held))  # what the slot holds while building
+    return graphs.Graph(fn, (a, None, b))
+
+  first, built = graphs.kept(held, "s", lambda _: True, build)
+  assert built and held == {"s": first}
+  assert graphs.kept(held, "s", lambda _: True, build) == (first, False)
+  second, built = graphs.kept(held, "s", lambda _: False, build)
+  assert built and second is not first and builds == [{}, {}]
+
+
+def _updated(params):
+  """A copy of ``params`` whose weights a test may update in place."""
+  return L.tree_map(lambda t: t.clone(), params)
+
+
+def test_a_graphed_relocaliser_captures_its_step_once_and_replays(
+    params, traced, fake_cuda_graphs):
+  """Rehearsed on the CPU: the first filter-step frame warms up (that
+  frame's result, the eager surface's) and captures the step; later
+  frames copy themselves into the graph's frame buffer and replay, the
+  carry staying in the graph's buffers; after a reset the next frame
+  copies the new carry in and replays; an in-place weight update, or a
+  new frame shape, captures again."""
+  p = _updated(params)
+  graphed = OnlineRelocalizer(p, CFG, K, solve_pose=False, device="cpu")
+  eager = OnlineRelocalizer(p, CFG, K, solve_pose=False, device="cpu",
+                            graph=False)
+  fs = frames(6)
+  assert graphed._graphs.get("step") is None
+  got = [graphed.tick(f) for f in fs[:2]]
+  want = [eager.tick(f) for f in fs[:2]]
+  assert torch.equal(got[1], want[1])  # the warm-up is this frame's step
+  assert tracing.snapshot()["counters"] == {"filter.captures": 1,
+                                            "host.syncs": 1}
+  step = graphed._graphs.get("step")
+  assert graphed.state is step.carry
+  for f in fs[2:4]:
+    graphed.tick(f)
+    assert torch.equal(step.frame, torch.from_numpy(f))
+  assert graphed._graphs.get("step") is step and step.graph.replays == 2
+  graphed.reset()
+  eager.reset()
+  graphed.tick(fs[4])
+  eager.tick(fs[4])
+  new = eager.state
+  graphed.tick(fs[5])
+  assert graphed._graphs.get("step") is step and step.graph.replays == 3
+  assert all(torch.equal(b, c) for b, c in zip(step.carry, new))
+  with torch.no_grad():
+    L.tree_leaves(p)[0].add_(0.0)  # a new version of the same values
+  graphed.tick(fs[0])
+  assert graphed._graphs.get("step") is not step
+  graphed.reset()
+  wide = np.concatenate([fs[:2], fs[:2]], axis=2)  # (2, 48, 128, 3)
+  graphed.tick(wide[0])
+  graphed.tick(wide[1])
+  assert tuple(graphed._graphs.get("step").frame.shape) == (48, 128, 3)
+  assert tracing.snapshot()["counters"]["filter.captures"] == 3
+
+
+def test_a_graphed_fleet_copies_each_ticks_reset_mask_in(params, traced,
+                                                         fake_cuda_graphs):
+  """Rehearsed on the CPU: the fleet's step captures once, with the reset
+  mask a static buffer that every later tick copies its mask into (zeros
+  where the tick resets no slot); the capturing tick's result is the
+  eager fleet's."""
+  graphed = FleetRelocalizer(params, CFG, K, batch_size=2, solve_pose=False,
+                             device="cpu")
+  eager = FleetRelocalizer(params, CFG, K, batch_size=2, solve_pose=False,
+                           device="cpu", graph=False)
+  ticks = [np.stack([f, f[::-1]]) for f in frames(5)]
+  resets = [None, [True, False], [False, True], None, [True, True]]
+  for t, (tick, reset) in enumerate(zip(ticks, resets)):
+    got = graphed.tick(tick, reset=reset)
+    if t < 2:
+      assert torch.equal(got, eager.tick(tick, reset=reset))
+    if t:
+      want = [False, False] if reset is None else reset
+      assert graphed._graphs.get("step").mask.tolist() == want
+  assert graphed._graphs.get("step").graph.replays == 3
+  assert tracing.snapshot()["counters"] == {"filter.captures": 1,
+                                            "host.syncs": 1}
+
+
+def test_run_filter_keeps_one_graph_a_key(params, traced, fake_cuda_graphs):
+  """Rehearsed on the CPU: a graphed run_filter captures its step on frame
+  1 (the warm-up: the eager run's step) and replays it on the rest; a
+  second call replays the kept graph; another return_aux and a new frame
+  shape are new keys; an in-place weight update captures again in its
+  key."""
+  p = _updated(params)
+  fs = frames(4)
+  run = lambda images, **kw: sequence.run_filter(p, CFG, images,
+                                                 device="cpu",
+                                                 return_aux=True, **kw)[3]
+  got, want = run(fs), run(fs, graph=False)
+  assert all(torch.equal(got[k][0], want[k][0]) for k in want)
+  (step,) = sequence._graphs.values()
+  assert step.graph.replays == 2
+  run(fs)
+  assert list(sequence._graphs.values()) == [step]
+  assert step.graph.replays == 5
+  assert tracing.snapshot()["counters"]["filter.captures"] == 1
+  sequence.run_filter(p, CFG, fs, device="cpu")
+  run(np.concatenate([fs, fs], axis=2))
+  assert len(sequence._graphs) == 3
+  with torch.no_grad():
+    L.tree_leaves(p)[0].add_(0.0)
+  run(fs)
+  assert len(sequence._graphs) == 3 and step not in sequence._graphs.values()
+  assert tracing.snapshot()["counters"]["filter.captures"] == 4
+
+
+ECFG = esac.EsacConfig(num_experts=3, stem_channels=(4, 8, 16, 32),
+                       res_channels=64, head_channels=64,
+                       gating_channels=(1, 2, 4, 8), compute_dtype="float32")
+ERCFG = ransac.RansacConfig(solver="p3p", num_hypotheses=32)
+
+
+@pytest.fixture(scope="module")
+def esac_params():
+  return esac.init(3, ECFG, device="cpu")
+
+
+def test_esac_captures_every_part_on_the_first_tick(esac_params, traced,
+                                                    fake_cuda_graphs):
+  """Rehearsed on the CPU: ESAC's first tick captures the gating, the draw
+  (the only one of them with the generator registered), the expert pass of
+  every size (in one pool) and the solve, and is the eager surface's tick
+  bit for bit; each later tick replays the gating, the draw and one pass
+  graph a pass."""
+  B = 2
+  graphed, eager = (EsacRelocalizer(esac_params, ECFG, K, batch_size=B,
+                                    ransac_config=ERCFG, seed=5,
+                                    device="cpu", graph=graph)
+                    for graph in (None, False))
+  ticks = np.random.default_rng(3).integers(0, 256, (3, B, 48, 64, 3),
+                                            dtype=np.uint8)
+  assert torch.equal(graphed.tick(ticks[0]), eager.tick(ticks[0]))
+  assert torch.equal(graphed._gen.get_state(), eager._gen.get_state())
+  sizes = B * ECFG.num_experts  # below PASS_PAIRS: one graph a size
+  assert tracing.snapshot()["counters"] == {
+      "esac.captures": 2 + sizes, "pose.captures": 1,
+      "host.syncs": 2 + sizes + 1 + 2,  # and each surface's read-back
+      "esac.expert_runs": mock.ANY,
+      "esac.experts_drawn": mock.ANY}
+  made = fake_cuda_graphs
+  gen = [graphed._gen]
+  assert [g.generators for g in made] == [[], gen] + [[]] * sizes + [gen]
+  pool = made[2].pool
+  assert pool is not None
+  assert [g.pool for g in made] == [None, None] + [pool] * sizes + [None]
+  passes = 0
+  for tick in ticks[1:]:
+    graphed.tick(tick)
+    passes += len(pair_passes(graphed.last[2].numel()))
+  assert tracing.snapshot()["counters"]["esac.replays"] == 2 * 2 + passes
+  assert [g.replays for g in made[:2]] == [2, 2]
+  assert sum(g.replays for g in made[2:-1]) == passes
+  assert len(made) == 2 + sizes + 1  # nothing captured after the first
+
+
+@pytest.mark.parametrize("surface", ["stream", "fleet", "esac"])
+def test_a_dropped_surface_frees_its_graphs_at_once(params, esac_params,
+                                                     fake_cuda_graphs,
+                                                     surface):
+  """A graphed surface is in no reference cycle: dropping it frees it and
+  its graphs at once. Left to a garbage collection, they could be freed
+  inside another surface's capture, which a CUDA capture refuses."""
+  if surface == "esac":
+    reloc = EsacRelocalizer(esac_params, ECFG, K, ransac_config=ERCFG,
+                            device="cpu")
+    ticks = [f[None] for f in frames(3)]
+  elif surface == "fleet":
+    reloc = FleetRelocalizer(params, CFG, K, batch_size=2,
+                             ransac_config=RCFG, device="cpu")
+    ticks = [np.stack([f, f]) for f in frames(3)]
+  else:
+    reloc = OnlineRelocalizer(params, CFG, K, ransac_config=RCFG,
+                              device="cpu")
+    ticks = frames(3)
+  for t in ticks:
+    reloc.tick(t)
+  assert len(fake_cuda_graphs) > 1  # the solve and more were captured
+  gone = [weakref.ref(reloc)] + [weakref.ref(g) for g in fake_cuda_graphs]
+  fake_cuda_graphs.clear()
+  gc.disable()
+  try:
+    del reloc
+    assert [r() for r in gone] == [None] * len(gone)
+  finally:
+    gc.enable()
+
+
+def _launching(fn, wrapper):
+  """``fn`` that also launches ``wrapper``'s kernel once a call."""
+  def call(*args, **kwargs):
+    launches.count(wrapper)
+    return fn(*args, **kwargs)
+  return call
+
+
+@pytest.mark.parametrize("user", ["filter_step", "pose_solve", "esac_gate"])
+def test_a_launch_inside_any_capture_counts_once_a_replay(
+    params, esac_params, fake_cuda_graphs, monkeypatch, user):
+  """A kernel wrapper called inside each graph user's body counts once a
+  served frame, graphed as eagerly: the warm-up's launch runs, the
+  capture's is recorded and not counted, and each replay adds it once."""
+  wrapper = _Wrapper()
+  if user == "esac_gate":
+    monkeypatch.setattr(esac, "gate", _launching(esac.gate, wrapper))
+    reloc = EsacRelocalizer(esac_params, ECFG, K, batch_size=1,
+                            ransac_config=ERCFG, device="cpu")
+    served = [f[None] for f in frames(4)]
+  else:
+    owner, name = ((kfnet, "filter_step") if user == "filter_step"
+                   else (ransac, "_solve_maps"))
+    monkeypatch.setattr(owner, name,
+                        _launching(getattr(owner, name), wrapper))
+    reloc = OnlineRelocalizer(params, CFG, K, ransac_config=RCFG,
+                              solve_pose=user == "pose_solve", device="cpu")
+    served = frames(4)
+  for f in served:
+    reloc.tick(f)
+  # the filter step runs from the second frame on, the rest every frame
+  assert wrapper.launches == len(served) - (user == "filter_step")
 
 
 def test_a_graphed_solve_captures_once_a_key_and_replays(traced,
